@@ -1,0 +1,368 @@
+"""FoundationPoseTorch — the pose-engine API: global registration + tracking.
+
+Counterpart of foundationpose_tpu/engine/estimator.py (``EstimatorConfig``,
+``FoundationPoseTPU`` -> ``FoundationPoseTorch``): mesh centring and
+diameter, icosphere x in-plane rotation-hypothesis grid with symmetric
+clustering, translation guess from the mask/depth, iterative
+render-and-compare refinement, cross-pose scoring with a top-K polish, and
+per-frame multi-hypothesis tracking.
+
+``register`` is the body of the JAX package's ``_register_program`` for the
+reference schedule plus the final polish; ``track_one`` is
+``_track_program_multi`` (and ``_track_program`` for one hypothesis). They
+run as eager tensor code: the JAX package's single-dispatch program
+machinery, packed downloads and integer upload formats serve a
+remote-attached accelerator and have no counterpart here. The hypothesis
+axis is not padded, so no pad masking is needed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+
+import numpy as np
+import torch
+
+from foundationpose_tpu_torch import resolve_device
+from foundationpose_tpu_torch.core import geometry as geo
+from foundationpose_tpu_torch.core import meshio, poses as poses_mod, validate
+from foundationpose_tpu_torch.engine.refiner import PoseRefiner, RefinerConfig
+from foundationpose_tpu_torch.engine.scorer import PoseScorer, ScorerConfig
+from foundationpose_tpu_torch.ops import image as imops
+from foundationpose_tpu_torch.ops import raster
+
+
+def preprocess_depth(depth, K):
+    """erode + bilateral + xyz map (the per-frame depth preprocessing)."""
+    d = imops.erode_depth(depth, radius=2)
+    d = imops.bilateral_filter_depth(d, radius=2)
+    return d, geo.depth2xyzmap(d, K)
+
+
+def guess_translation(depth, mask, K):
+    """Translation guess: mask bbox centre ray x median masked depth, with
+    ``np.median`` semantics (mean of the two middle elements for even
+    counts). Returns (center (3,) tensor, n_valid int)."""
+    m = mask > 0
+    valid = m & (depth >= 0.001)
+    n_valid = int(valid.sum())
+    if n_valid == 0 or not bool(m.any()):
+        return torch.zeros(3, device=depth.device), n_valid
+    vs, us = torch.nonzero(m, as_tuple=True)
+    uc = (us.min().float() + us.max().float()) / 2.0
+    vc = (vs.min().float() + vs.max().float()) / 2.0
+    s = torch.sort(depth[valid]).values
+    zc = (s[(n_valid - 1) // 2] + s[n_valid // 2]) / 2.0
+    ray = torch.stack([uc, vc, torch.ones_like(uc)])
+    return torch.linalg.inv(K) @ ray * zc, n_valid
+
+
+@dataclasses.dataclass
+class EstimatorConfig:
+    min_n_views: int = 40
+    inplane_step: int = 60
+    cluster_angle_deg: float = 30.0
+    register_iterations: int = 5
+    track_iterations: int = 2
+    # multi-hypothesis tracking: per frame, refine 1 + 7 slightly perturbed
+    # copies of the chain pose and keep the scorer's argmax. 1 restores the
+    # reference's refine-only track_one.
+    track_hypotheses: int = 8
+    # perturbation fan magnitudes (x mesh diameter / degrees)
+    track_perturb_trans_rel: float = 0.015
+    track_perturb_rot_deg: float = 1.5
+    # track-time observed gating: zero observed rgb/depth beyond this
+    # dilation radius (crop pixels) around each candidate's RENDERED
+    # silhouette. 0 disables.
+    track_gate_px: int = 12
+    # host pre-crop: process only a fixed SxS window around the last pose
+    # instead of the full frame. 0 disables.
+    track_crop_size: int = 224
+    track_crop_margin: float = 1.4
+    max_render_faces: int = 4096  # decimation bound for the render mesh
+    # register-time observed gating: zero observed rgb/depth beyond this
+    # dilation radius (pixels) around the segmentation mask. 0 restores
+    # reference behaviour.
+    register_mask_dilation: int = 10
+    # hierarchical polish: re-refine the top-K scored hypotheses for extra
+    # iterations, then re-score. 0 restores the exact reference schedule.
+    final_refine_iterations: int = 2
+    final_refine_top_k: int = 8
+    # funnel schedule and its coarse LOD / coarse crop size: not ported yet
+    funnel_top_k: int = 0
+    funnel_coarse_iterations: int = 1
+    funnel_coarse_size: int = 0
+    funnel_coarse_faces: int = 0
+    # debug artifact dumps: not ported yet
+    debug: int = 0
+    refiner: RefinerConfig = dataclasses.field(default_factory=RefinerConfig)
+    scorer: ScorerConfig = dataclasses.field(default_factory=ScorerConfig)
+
+
+def _check_supported(cfg: EstimatorConfig, device_mesh):
+    later = []
+    if cfg.funnel_top_k > 0 or cfg.funnel_coarse_size or cfg.funnel_coarse_faces:
+        later.append("the funnel schedule (funnel_top_k / funnel_coarse_size / "
+                     "funnel_coarse_faces) comes with the funnel + coarse-LOD slice")
+    if device_mesh is not None:
+        later.append("device_mesh (hypothesis-axis sharding) comes with the "
+                     "multi-device slice")
+    if cfg.debug >= 1:
+        later.append("debug >= 1 dumps come with the debug/io slice")
+    if later:
+        raise NotImplementedError("not in this slice of the port: " + "; ".join(later))
+
+
+class FoundationPoseTorch:
+    """Register/track API. Usage:
+
+    >>> est = FoundationPoseTorch(mesh, refiner=refiner, scorer=scorer)
+    >>> pose = est.register(K, rgb, depth, ob_mask)   # (4,4) original frame
+    >>> pose = est.track_one(rgb, depth, K)
+
+    ``device=None`` means cuda (raises without one); ``device="cpu"`` runs
+    the plain rasterizer and float32 nets on the CPU.
+    """
+
+    def __init__(self, mesh: meshio.Mesh, symmetry_tfs=None,
+                 config: EstimatorConfig | None = None,
+                 refiner: PoseRefiner | None = None, scorer=None,
+                 device=None, device_mesh=None):
+        self.cfg = config or EstimatorConfig()
+        _check_supported(self.cfg, device_mesh)
+        self.device = resolve_device(device)
+        self.refiner = refiner or PoseRefiner(self.cfg.refiner, device=self.device)
+        self.scorer = scorer or PoseScorer(self.cfg.scorer, device=self.device)
+        for name, part in (("refiner", self.refiner), ("scorer", self.scorer)):
+            if part.device.type != self.device.type:
+                raise ValueError(f"{name} lives on {part.device}, estimator on {self.device}")
+        self.reset_object(mesh, symmetry_tfs)
+        self.pose_last = None  # (4,4) float64, centred-mesh frame
+        self.scores = None
+        self.poses = None
+
+    def _enable_backface_cull(self):
+        self.refiner.cfg = dataclasses.replace(self.refiner.cfg, backface_cull=True)
+        self.scorer.cfg = dataclasses.replace(self.scorer.cfg, backface_cull=True)
+
+    # ------------------------------------------------------------------
+    def reset_object(self, mesh: meshio.Mesh, symmetry_tfs=None):
+        """Centre the mesh, compute the diameter, build mesh tensors and the
+        rotation grid."""
+        bounds = mesh.bounds
+        self.model_center = (bounds[0] + bounds[1]) / 2.0
+        self.mesh_ori = mesh
+        centered = mesh.translated(-self.model_center)
+        self.mesh = centered
+        self.diameter = meshio.compute_mesh_diameter(mesh=centered)
+        if symmetry_tfs is None:
+            symmetry_tfs = np.eye(4)[None]
+        self.symmetry_tfs = np.asarray(symmetry_tfs, dtype=np.float64)
+        self.mesh_tensors = raster.make_mesh_tensors(
+            centered, max_faces=self.cfg.max_render_faces, bucket=True,
+            device=self.device,
+        )
+        self.rot_grid = poses_mod.make_rotation_grid(
+            min_n_views=self.cfg.min_n_views,
+            inplane_step=self.cfg.inplane_step,
+            symmetry_tfs=self.symmetry_tfs,
+            cluster_angle_deg=self.cfg.cluster_angle_deg,
+        ).astype(np.float32)
+        # backface culling is exact for closed CCW meshes and halves the
+        # rasterizer's face work; enable it automatically when safe
+        self.watertight = meshio.is_watertight(centered)
+        if self.watertight:
+            self._enable_backface_cull()
+        self._track_perturb_cache = None
+        logging.info(
+            "reset_object: diameter=%.4f rot_grid=%s render_faces=%d",
+            self.diameter, self.rot_grid.shape, self.mesh_tensors["faces"].shape[0],
+        )
+
+    def get_tf_to_centered_mesh(self):
+        tf = np.eye(4, dtype=np.float64)
+        tf[:3, 3] = -self.model_center
+        return tf
+
+    def _track_perturb(self):
+        """Deterministic (K-1, 6) [dt camera-frame | axis-angle] perturbation
+        fan for multi-hypothesis tracking: camera-plane translations and
+        in-plane (camera-z) rotations, scaled to the mesh diameter."""
+        k = self.cfg.track_hypotheses
+        cache_key = (k, float(self.diameter))
+        if self._track_perturb_cache is not None and self._track_perturb_cache[0] == cache_key:
+            return self._track_perturb_cache[1]
+        dt = self.cfg.track_perturb_trans_rel * self.diameter
+        dr = np.radians(self.cfg.track_perturb_rot_deg)
+        base = np.array([
+            [+dt, 0, 0, 0, 0, 0],
+            [-dt, 0, 0, 0, 0, 0],
+            [0, +dt, 0, 0, 0, 0],
+            [0, -dt, 0, 0, 0, 0],
+            [0, 0, 0, 0, 0, +dr],
+            [0, 0, 0, 0, 0, -dr],
+            [+dt * 0.7071, +dt * 0.7071, 0, 0, 0, 0],
+        ], np.float32)
+        if k - 1 <= len(base):
+            fan = base[: k - 1]
+        else:
+            # extend deterministically with random small 6-dof deltas
+            rng = np.random.default_rng(0)
+            extra = rng.uniform(-1.0, 1.0, (k - 1 - len(base), 6)).astype(np.float32)
+            extra[:, :3] *= dt
+            extra[:, 3:] *= dr
+            fan = np.concatenate([base, extra])
+        fan_t = torch.tensor(fan, device=self.device)
+        self._track_perturb_cache = (cache_key, fan_t)
+        return fan_t
+
+    @staticmethod
+    def _as_u8(img):
+        a = np.asarray(img)
+        if a.dtype == np.uint8:
+            return a
+        return np.clip(a, 0, 255).astype(np.uint8)
+
+    def _top_k(self, scores, k):
+        # stable descending order: ties go to the lower index
+        return torch.argsort(-scores, stable=True)[:k]
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def register(self, K, rgb, depth, ob_mask, iteration=None):
+        """Global registration. Returns (4,4) float64 pose of the ORIGINAL
+        (uncentred) mesh in camera."""
+        iteration = int(iteration or self.cfg.register_iterations)
+        K = np.asarray(validate.check_intrinsics(K), dtype=np.float64)
+        rgb, depth = validate.check_rgbd(rgb, depth, name="register")
+        ob_mask = validate.check_mask(ob_mask, depth.shape, name="register")
+        cfg, dev = self.cfg, self.device
+
+        K_t = torch.tensor(K, dtype=torch.float32, device=dev)
+        rgb_t = torch.tensor(self._as_u8(rgb), device=dev).float()
+        depth_t = torch.tensor(np.asarray(depth, np.float32), device=dev)
+        mask_t = torch.tensor(np.asarray(ob_mask) > 0, device=dev)
+        if cfg.register_mask_dilation:
+            # gate the OBSERVED frame to a dilated margin around the
+            # segmentation mask; zeroed depth reads as sensor holes
+            gate = imops.dilate_mask(mask_t, radius=int(cfg.register_mask_dilation))
+            depth_t = torch.where(gate, depth_t, torch.zeros_like(depth_t))
+            rgb_t = rgb_t * gate[..., None]
+        d, xyz_map = preprocess_depth(depth_t, K_t)
+        center, n_valid = guess_translation(d, mask_t, K_t)
+        if n_valid < 4:
+            logging.info("valid pixel count < 4; returning translation-only pose")
+            pose = np.eye(4)
+            pose[:3, 3] = center.cpu().numpy()
+            return pose
+
+        hyp = torch.tensor(self.rot_grid, device=dev)
+        hyp[:, :3, 3] = center[None]
+        mt, diam = self.mesh_tensors, float(self.diameter)
+        refined = self.refiner.refine(mt, rgb_t, xyz_map, K_t, hyp, diam, iteration)
+        scores = self.scorer.score(mt, rgb_t, xyz_map, K_t, refined, diam)
+        if cfg.final_refine_iterations > 0:
+            top_i = self._top_k(scores, min(cfg.final_refine_top_k, len(refined)))
+            top = self.refiner.refine(
+                mt, rgb_t, xyz_map, K_t, refined[top_i], diam,
+                cfg.final_refine_iterations,
+            )
+            top_s = self.scorer.score(mt, rgb_t, xyz_map, K_t, top, diam)
+            refined = refined.clone()
+            scores = scores.clone()
+            refined[top_i] = top
+            scores[top_i] = top_s + 100.0  # polished entries rank above the field
+        order = torch.argsort(-scores, stable=True)
+        self.poses = refined[order].cpu().numpy().astype(np.float64)
+        self.scores = scores[order].cpu().numpy()
+        self.hyp_order = order.cpu().numpy()  # ranked slot -> rotation-grid index
+        self.pose_last = self.poses[0]
+        return self.poses[0] @ self.get_tf_to_centered_mesh()
+
+    # ------------------------------------------------------------------
+    def _pretrack_crop(self, rgb_u8, depth, K):
+        """Fixed-size host crop around the last tracked pose. Returns
+        (rgb, depth, K') with the principal point shifted (camera-frame
+        geometry is unchanged by an image crop). Falls back to the full frame
+        when the object would not fit at the configured window size."""
+        S = self.cfg.track_crop_size
+        H, W = depth.shape
+        if not S or (H <= S and W <= S):
+            return rgb_u8, depth, K
+        t = self.pose_last[:3, 3]
+        z = max(float(t[2]), 1e-3)
+        f = max(K[0, 0], K[1, 1])
+        r = self.diameter * self.cfg.refiner.crop_ratio / 2.0
+        side = 2.0 * r * f / z * self.cfg.track_crop_margin
+        if side > S:
+            return rgb_u8, depth, K  # object too big for the window
+        u = K[0, 0] * t[0] / z + K[0, 2]
+        v = K[1, 1] * t[1] / z + K[1, 2]
+        u0 = int(np.clip(round(u - S / 2), 0, max(W - S, 0)))
+        v0 = int(np.clip(round(v - S / 2), 0, max(H - S, 0)))
+        rgb_c = np.ascontiguousarray(rgb_u8[v0 : v0 + S, u0 : u0 + S])
+        depth_c = np.ascontiguousarray(depth[v0 : v0 + S, u0 : u0 + S])
+        K2 = K.copy()
+        K2[0, 2] -= u0
+        K2[1, 2] -= v0
+        return rgb_c, depth_c, K2
+
+    @torch.no_grad()
+    def track_one(self, rgb, depth, K, iteration=None, sync=True):
+        """Track from the last pose: refine the chain pose and its
+        perturbation fan, score, keep the argmax (the unperturbed chain wins
+        ties through a +0.01 bonus). With ``track_hypotheses=1`` it is
+        refine-only and — as in the JAX package — ungated. Returns the (4,4)
+        float64 pose of the ORIGINAL mesh in camera."""
+        if not sync:
+            raise NotImplementedError(
+                "sync=False streaming comes with the MultiObjectTracker / "
+                "streaming slice of the port"
+            )
+        if self.pose_last is None:
+            raise RuntimeError("call register() before track_one()")
+        iteration = int(iteration or self.cfg.track_iterations)
+        K = np.asarray(validate.check_intrinsics(K), dtype=np.float64)
+        rgb, depth = validate.check_rgbd(rgb, depth, name="track_one")
+        rgb_u8 = self._as_u8(rgb)
+        depth = np.asarray(depth, np.float32)
+        rgb_u8, depth, K = self._pretrack_crop(rgb_u8, depth, K)
+        # The JAX package sends tracking depth as 16-bit steps of 0.25 mm
+        # (dynamic scale beyond 16.4 m); the same rounding is applied here so
+        # both packages filter the same depth values.
+        dmax = float(depth.max()) if depth.size else 0.0
+        scale = 0.00025 if dmax <= 0.00025 * 65535.0 else dmax / 65535.0
+        depth_q = (np.clip(depth, 0.0, None) * (1.0 / scale) + 0.5).astype(np.uint16)
+        depth = depth_q.astype(np.float32) * np.float32(scale)
+
+        dev = self.device
+        K_t = torch.tensor(K, dtype=torch.float32, device=dev)
+        rgb_t = torch.tensor(rgb_u8, device=dev).float()
+        _, xyz_map = preprocess_depth(torch.tensor(depth, device=dev), K_t)
+        pose_last = torch.tensor(self.pose_last, dtype=torch.float32, device=dev)[None]
+        mt, diam = self.mesh_tensors, float(self.diameter)
+        if self.cfg.track_hypotheses > 1:
+            gate = int(self.cfg.track_gate_px)
+            perturb = self._track_perturb()
+            base = pose_last.expand(perturb.shape[0], 4, 4)
+            dR = geo.so3_exp_map(perturb[:, 3:])
+            hyp = torch.cat(
+                [pose_last, geo.egocentric_delta_pose_to_pose(base, perturb[:, :3], dR)]
+            )
+            refined = self.refiner.refine(
+                mt, rgb_t, xyz_map, K_t, hyp, diam, iteration, gate_px=gate
+            )
+            scores = self.scorer.score(
+                mt, rgb_t, xyz_map, K_t, refined, diam, gate_px=gate
+            ).clone()
+            scores[0] += 0.01  # stickiness: the unperturbed chain wins ties
+            best = refined[torch.argmax(scores)]
+        else:
+            best = self.refiner.refine(
+                mt, rgb_t, xyz_map, K_t, pose_last, diam, iteration
+            )[0]
+        tf_c = torch.tensor(self.get_tf_to_centered_mesh(), dtype=torch.float32, device=dev)
+        out = (best @ tf_c).cpu().numpy().astype(np.float64)
+        self.pose_last = best.cpu().numpy().astype(np.float64)
+        return out

@@ -1,0 +1,80 @@
+"""The port stands alone: neither ``foundationpose_tpu_torch`` nor
+``chip_smoke.py`` imports jax, flax or anything of the JAX package."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "foundationpose_tpu_torch")
+FORBIDDEN = [
+    re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M),
+    # word-bounded so that foundationpose_tpu_torch passes
+    re.compile(r"\bfoundationpose_tpu\."),
+    re.compile(r"\bfrom\s+foundationpose_tpu\s"),
+    re.compile(r"\bimport\s+foundationpose_tpu\b(?!_)"),
+    re.compile(r"libfp_native"),
+]
+
+
+def _sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PKG):
+        if "_build" in d or "__pycache__" in d:
+            continue
+        files += [os.path.join(d, n) for n in names if n.endswith((".py", ".cu", ".cuh"))]
+    return sorted(files)
+
+
+def test_sources_found():
+    names = {os.path.relpath(f, ROOT) for f in _sources()}
+    for must in ("chip_smoke.py", "foundationpose_tpu_torch/ops/raster_cuda.py",
+                 "foundationpose_tpu_torch/csrc/raster.cu",
+                 "foundationpose_tpu_torch/engine/estimator.py"):
+        assert must in names
+
+
+@pytest.mark.parametrize("path", [os.path.relpath(f, ROOT) for f in _sources()])
+def test_no_jax_in_port_source(path):
+    with open(os.path.join(ROOT, path)) as f:
+        text = f.read()
+    for pat in FORBIDDEN:
+        hit = pat.search(text)
+        assert hit is None, f"{path}: forbidden reference {hit.group(0)!r}"
+
+
+def test_importing_the_port_loads_no_jax():
+    """Import every module of the port in a fresh interpreter and look at
+    ``sys.modules``."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import foundationpose_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'foundationpose_tpu')]\n"
+        "assert not bad, bad\n"
+        "import torch\n"
+        "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
+        "assert torch.backends.cudnn.allow_tf32 is False\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+def test_chip_smoke_fails_without_a_card():
+    """Without a CUDA device the smoke script exits non-zero and prints no
+    result line."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "kernels" not in out.stdout
