@@ -1,7 +1,8 @@
 """Where the time goes: per-stage wall times of one warm ``register`` and of
 ``track_one`` on the demo scene, on the GPU.
 
-Each stage function (depth preprocessing, K1 render wrapper, observed warp,
+Each stage function (depth preprocessing, the two kernels of a render call —
+K1s and K1r, each with the allocations of its wrapper —, observed warp,
 RefineNet forward, ScoreNet forward) is wrapped with a timer that
 synchronises the device before and after, so a stage's figure is device
 work plus the Python overhead of launching it. Synchronising serialises host
@@ -57,7 +58,8 @@ def timed_stages(est):
     t = StageTimer()
     undo = [
         t.wrap(estimator, "preprocess_depth", "preprocess (erode+bilateral+xyz)"),
-        t.wrap(crop.raster_cuda, "render_crops", "render (K1 wrapper)"),
+        t.wrap(crop.raster_cuda, "setup_cuda", "render: K1s (face setup + tile bins)"),
+        t.wrap(crop.raster_cuda, "rasterize_cuda", "render: K1r (rasterizer)"),
         t.wrap(crop.imops, "warp_crop_affine", "observed warp"),
         t.wrap(est.refiner.net, "forward", "RefineNet forward"),
         t.wrap(est.scorer.net, "forward", "ScoreNet forward"),

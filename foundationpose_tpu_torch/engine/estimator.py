@@ -12,8 +12,12 @@ reference schedule plus the final polish; ``track_one`` is
 ``_track_program_multi`` (and ``_track_program`` for one hypothesis). They
 run as eager tensor code: the JAX package's single-dispatch program
 machinery, packed downloads and integer upload formats serve a
-remote-attached accelerator and have no counterpart here. The hypothesis
-axis is not padded, so no pad masking is needed.
+remote-attached accelerator and have no counterpart here. What is kept of
+them is the hypothesis-axis bucket: ``register`` pads the rotation grid to a
+multiple of 32 with copies of hypothesis 0, because the pads take part in
+ScoreNet's cross-pose attention and in the batch-axis neighbourhood of the
+geometric score's normals, so scores depend on them. Pads are masked to
+``-inf`` after every score and dropped before the result.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from foundationpose_tpu_torch.engine.refiner import PoseRefiner, RefinerConfig
 from foundationpose_tpu_torch.engine.scorer import PoseScorer, ScorerConfig
 from foundationpose_tpu_torch.ops import image as imops
 from foundationpose_tpu_torch.ops import raster
+
+HYP_BUCKET = 32  # register pads the hypothesis axis to a multiple of this
 
 
 def preprocess_depth(depth, K):
@@ -257,11 +263,18 @@ class FoundationPoseTorch:
             pose[:3, 3] = center.cpu().numpy()
             return pose
 
-        hyp = torch.tensor(self.rot_grid, device=dev)
+        # pad the hypothesis axis to its bucket with copies of hypothesis 0;
+        # a pad would score like the real entry it copies, so every score is
+        # masked to -inf on the pads, which sends them to the tail of the sort
+        n_orig = len(self.rot_grid)
+        grid = self.rot_grid[np.r_[0:n_orig, np.zeros((-n_orig) % HYP_BUCKET, int)]]
+        hyp = torch.tensor(grid, device=dev)
         hyp[:, :3, 3] = center[None]
+        is_pad = torch.arange(len(grid), device=dev) >= n_orig
         mt, diam = self.mesh_tensors, float(self.diameter)
         refined = self.refiner.refine(mt, rgb_t, xyz_map, K_t, hyp, diam, iteration)
         scores = self.scorer.score(mt, rgb_t, xyz_map, K_t, refined, diam)
+        scores = scores.masked_fill(is_pad, -torch.inf)
         if cfg.final_refine_iterations > 0:
             top_i = self._top_k(scores, min(cfg.final_refine_top_k, len(refined)))
             top = self.refiner.refine(
@@ -273,7 +286,8 @@ class FoundationPoseTorch:
             scores = scores.clone()
             refined[top_i] = top
             scores[top_i] = top_s + 100.0  # polished entries rank above the field
-        order = torch.argsort(-scores, stable=True)
+            scores = scores.masked_fill(is_pad, -torch.inf)
+        order = torch.argsort(-scores, stable=True)[:n_orig]  # pads are the tail
         self.poses = refined[order].cpu().numpy().astype(np.float64)
         self.scores = scores[order].cpu().numpy()
         self.hyp_order = order.cpu().numpy()  # ranked slot -> rotation-grid index

@@ -233,7 +233,11 @@ def _interp(pw, attr_v, vids):
 
 
 def _render_chunk(mesh_tensors, poses, K, crop_tfs, H, W, use_light, with_normal,
-                  w_ambient, w_diffuse, light_dir, backface_cull, face_chunk):
+                  w_ambient, w_diffuse, light_dir, backface_cull, face_chunk,
+                  face_ok=None):
+    """One chunk of poses. ``face_ok`` (B,P,F) bool, when given, limits each
+    pixel to the faces it marks — how the tests render a tile from only the
+    faces binned to it."""
     dev = poses.device
     B = poses.shape[0]
     P = H * W
@@ -259,6 +263,8 @@ def _render_chunk(mesh_tensors, poses, K, crop_tfs, H, W, use_light, with_normal
         # normalised barycentrics sum to 1, so an absolute epsilon covers
         # exact-edge ties (rays through shared triangle edges)
         inside = (w >= -1e-6).all(dim=-1) & valid[:, None, base : base + Fc]
+        if face_ok is not None:
+            inside = inside & face_ok[:, :, base : base + Fc]
         pix_invz = (w * invz[:, None, base : base + Fc]).sum(dim=-1)
         score = torch.where(inside, pix_invz, torch.full_like(pix_invz, -1.0))
         c_best, c_idx = score.max(dim=-1)

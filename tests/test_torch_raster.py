@@ -12,9 +12,11 @@ kernel is held against on the card) against
     depth/xyz 2e-3, rgb 6e-3, normal 9e-3): the slack is the Pallas kernel's
     bf16 tables, not the port.
 
-The CUDA kernel itself cannot run here; what surrounds it can: the face
-records and vertex tables it reads are emulated pixel by pixel and held
-against the plain version, and the wrapper's dispatch rule is checked.
+The CUDA kernels themselves cannot run here; what surrounds them can: the
+face records and vertex tables the rasterizer reads are emulated pixel by
+pixel and held against the plain version, and the wrapper's dispatch rule is
+checked. The tile bins and the in-kernel texture arithmetic are in
+tests/test_torch_raster_bins.py.
 """
 
 import os
@@ -250,7 +252,7 @@ def test_kernel_inputs_reproduce_plain_render(cull):
     inp = raster_cuda.make_kernel_inputs(mt, p, Kt, tfs, backface_cull=cull)
     F, V = mt["faces"].shape[0], mt["pos"].shape[0]
     assert inp["rec"].shape == (3, F, 16) and inp["vtab"].shape == (3, V, 8)
-    assert inp["vcol"].shape == (V, 4) and inp["faces"].dtype == torch.int32
+    assert inp["faces"].dtype == torch.int32
     # pad / culled / degenerate faces carry an empty bbox
     n_real = len(mesh.faces)
     assert (inp["rec"][:, n_real:, 12] > inp["rec"][:, n_real:, 13]).all()
@@ -268,7 +270,7 @@ def test_kernel_inputs_reproduce_plain_render(cull):
 def test_wrapper_takes_plain_version_only_for_cpu_tensors():
     mesh, poses = _cube()
     mt = raster.make_mesh_tensors(mesh, device="cpu")
-    before = raster_cuda.LAUNCHES
+    before = dict(raster_cuda.LAUNCHES)
     out = raster_cuda.render_crops(mt, poses, K, None, out_hw=HW)
     ref = raster.render_crops(mt, poses, K, None, out_hw=HW)
     assert raster_cuda.LAUNCHES == before  # no kernel launch on the CPU
