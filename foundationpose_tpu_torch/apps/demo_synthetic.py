@@ -1,11 +1,12 @@
 """Self-contained synthetic demo: build a scene, register, track a short
-motion — learned-hybrid mode with the shipped object-agnostic checkpoint.
+motion — learned-hybrid mode with the shipped object-agnostic checkpoint, or
+geometric mode (projective ICP + geometric score, no weights).
 
 Counterpart of foundationpose_tpu/apps/demo_synthetic.py (same chiral
 L-shaped object, same pose, same per-frame motion). ``make_scene`` and
 ``motion_frames`` are shared with ``chip_smoke.py`` at the repository root.
 
-Usage: python -m foundationpose_tpu_torch.apps.demo_synthetic [--device cpu]
+Usage: python -m foundationpose_tpu_torch.apps.demo_synthetic [--device cpu] [--mode geometric]
 """
 
 from __future__ import annotations
@@ -104,19 +105,35 @@ def default_weights_dir():
     return os.path.join(root, "weights", "agnostic")
 
 
-def build_estimator(mesh, device=None, config=None, input_size=None):
-    """Learned-hybrid estimator: agnostic RefineNet + ScoreNet checkpoint,
-    ``HybridScorer`` (weight 2.0)."""
-    from foundationpose_tpu_torch.engine.estimator import FoundationPoseTorch
-    from foundationpose_tpu_torch.engine.scorer import HybridScorer
-    from foundationpose_tpu_torch.models.agnostic import load_agnostic
+def build_estimator(mesh, device=None, config=None, input_size=None, mode="learned"):
+    """``mode="learned"``: agnostic RefineNet + ScoreNet checkpoint with
+    ``HybridScorer`` (weight 2.0). ``mode="geometric"``: ``GeometricRefiner``
+    + ``GeometricScorer``; without a ``config`` it gets the schedule of
+    ``run_pose --mode geometric`` (10 ICP iterations, then 8 more on the top
+    8)."""
+    from foundationpose_tpu_torch.engine.estimator import EstimatorConfig, FoundationPoseTorch
 
     device = resolve_device(device)
-    refiner, scorer, _ = load_agnostic(
-        default_weights_dir(), device=device, input_size=input_size
-    )
+    if mode == "geometric":
+        from foundationpose_tpu_torch.engine.geometric import (
+            GeometricConfig, GeometricRefiner, GeometricScorer,
+        )
+
+        gcfg = GeometricConfig(input_size=input_size) if input_size else GeometricConfig()
+        refiner, scorer = GeometricRefiner(gcfg, device), GeometricScorer(gcfg, device)
+        config = config or EstimatorConfig(register_iterations=10, final_refine_iterations=8)
+    elif mode == "learned":
+        from foundationpose_tpu_torch.engine.scorer import HybridScorer
+        from foundationpose_tpu_torch.models.agnostic import load_agnostic
+
+        refiner, learned, _ = load_agnostic(
+            default_weights_dir(), device=device, input_size=input_size
+        )
+        scorer = HybridScorer(learned)
+    else:
+        raise ValueError(f"mode must be 'learned' or 'geometric', got {mode!r}")
     return FoundationPoseTorch(
-        mesh, config=config, refiner=refiner, scorer=HybridScorer(scorer), device=device
+        mesh, config=config, refiner=refiner, scorer=scorer, device=device
     )
 
 
@@ -126,11 +143,12 @@ def main(argv=None):
     p.add_argument("--frames", type=int, default=5, help="tracking frames after register")
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--width", type=int, default=640)
+    p.add_argument("--mode", choices=["learned", "geometric"], default="learned")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
     scene = make_scene((args.height, args.width), device=device)
-    est = build_estimator(scene["mesh"], device=device)
+    est = build_estimator(scene["mesh"], device=device, mode=args.mode)
 
     def clock():
         if device.type == "cuda":

@@ -1,16 +1,17 @@
-"""Single-frame 6D pose estimation CLI (learned mode).
+"""Single-frame 6D pose estimation CLI.
 
-Counterpart of foundationpose_tpu/apps/run_pose.py for ``--mode learned``
-with the shipped ``weights/agnostic`` checkpoint and the hybrid scorer: load
-RGB + depth + intrinsics + mesh + mask, run registration, save the pose.
-Geometric mode, ``--weights`` checkpoint import, interactive / prompted
-masks, visualisation and NetworkTables publishing belong to later slices of
-the port and are refused here.
+Counterpart of foundationpose_tpu/apps/run_pose.py: load RGB + depth +
+intrinsics + mesh + mask, run registration, save the pose. ``--mode learned``
+uses the shipped ``weights/agnostic`` checkpoint and the hybrid scorer;
+``--mode geometric`` needs no weights (projective ICP + geometric score, twice
+the refine iterations and an 8-iteration polish). ``--weights`` checkpoint
+import, interactive / prompted masks, visualisation and NetworkTables
+publishing belong to later slices of the port; ``--weights`` is refused here.
 
 Usage:
   python -m foundationpose_tpu_torch.apps.run_pose --rgb rgb.png \\
       --depth depth.npy --intrinsics cam_K.txt --mesh object.obj \\
-      --mask mask.png [--device cpu]
+      --mask mask.png [--mode geometric] [--device cpu]
 """
 
 from __future__ import annotations
@@ -56,10 +57,6 @@ def load_inputs(args):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="[%(funcName)s()] %(message)s")
-    if args.mode != "learned":
-        raise NotImplementedError(
-            "--mode geometric comes with the geometric (ICP) slice of the port"
-        )
     if args.weights is not None:
         raise NotImplementedError(
             "--weights torch-checkpoint import comes with the training-stack "
@@ -73,10 +70,14 @@ def main(argv=None):
     os.makedirs(args.out_dir, exist_ok=True)
     rgb, depth, K, mask = load_inputs(args)
     mesh = meshio.load_mesh(args.mesh)
-    cfg = EstimatorConfig(register_iterations=args.est_refine_iter)
-    est = build_estimator(mesh, device=args.device, config=cfg)
-    pose = est.register(K, rgb.astype(np.float32), depth, mask,
-                        iteration=args.est_refine_iter)
+    if args.mode == "geometric":
+        cfg = EstimatorConfig(register_iterations=args.est_refine_iter * 2,
+                              final_refine_iterations=8)
+    else:
+        cfg = EstimatorConfig(register_iterations=args.est_refine_iter)
+    est = build_estimator(mesh, device=args.device, config=cfg, mode=args.mode)
+    # None: the configured register_iterations (twice --est-refine-iter in geometric mode)
+    pose = est.register(K, rgb.astype(np.float32), depth, mask, iteration=None)
     np.savetxt(os.path.join(args.out_dir, "pose.txt"), pose)
     logging.info("pose:\n%s", pose)
     return pose

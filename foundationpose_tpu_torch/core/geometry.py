@@ -1,7 +1,7 @@
 """Pose and camera geometry on torch tensors.
 
 Counterpart of foundationpose_tpu/core/geometry.py, as far as the ported
-path needs it: ``normalize``, ``hat``, ``so3_exp_map``,
+path needs it: ``normalize``, ``hat``, ``so3_exp_map``, ``se3_exp_map``,
 ``rotation_6d_to_matrix``, ``euler_matrix``,
 ``egocentric_delta_pose_to_pose``, ``project_pts``,
 ``compute_crop_window_tf_batch``, ``depth2xyzmap``.
@@ -66,6 +66,32 @@ def so3_exp_map(log_rot):
     return eye + a[..., None, None] * Kx + b[..., None, None] * (Kx @ Kx)
 
 
+def se3_exp_map(xi):
+    """(..., 6) [v, w] (translation part first) -> (..., 4, 4) with the
+    standard left-Jacobian V, the same Taylor branches as ``so3_exp_map``."""
+    xi = as_f32(xi)
+    v, w = xi[..., :3], xi[..., 3:]
+    theta2 = (w * w).sum(dim=-1)
+    small = theta2 < 1e-8
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta_safe = torch.sqrt(theta2_safe)
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta_safe) / theta_safe)
+    b = torch.where(
+        small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta_safe)) / theta2_safe
+    )
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (1.0 - a) / theta2_safe)
+    Kx = hat(w)
+    KK = Kx @ Kx
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand_as(Kx)
+    R = eye + a[..., None, None] * Kx + b[..., None, None] * KK
+    V = eye + b[..., None, None] * Kx + c[..., None, None] * KK
+    T = torch.zeros((*xi.shape[:-1], 4, 4), dtype=xi.dtype, device=xi.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = (V @ v[..., None])[..., 0]
+    T[..., 3, 3] = 1.0
+    return T
+
+
 def rotation_6d_to_matrix(d6):
     """Zhou et al. 6D rotation -> (..., 3, 3) with b1/b2/b3 as matrix ROWS
     (the refiner transposes the result before use)."""
@@ -128,10 +154,10 @@ def compute_crop_window_tf_batch(poses, K, crop_ratio, mesh_diameter, out_size):
     K = as_f32(K, poses.device)
     out_w, out_h = out_size
     r = float(mesh_diameter) * crop_ratio / 2.0
-    offsets = torch.tensor(
-        [[0, 0, 0], [r, 0, 0], [-r, 0, 0], [0, r, 0], [0, -r, 0]],
-        dtype=torch.float32, device=poses.device,
-    )
+    # centre, +-r along camera x, +-r along camera y; built on the device (an
+    # upload of a constant would make every call wait for the stream)
+    ex, ey = torch.eye(3, dtype=torch.float32, device=poses.device)[:2] * r
+    offsets = torch.stack([torch.zeros_like(ex), ex, -ex, ey, -ey])
     pts = poses[:, None, :3, 3] + offsets[None]  # (B,5,3)
     uvs = project_pts(pts, K)  # (B,5,2)
     center = uvs[:, 0]  # (B,2)

@@ -7,17 +7,28 @@ clustering, translation guess from the mask/depth, iterative
 render-and-compare refinement, cross-pose scoring with a top-K polish, and
 per-frame multi-hypothesis tracking.
 
-``register`` is the body of the JAX package's ``_register_program`` for the
-reference schedule plus the final polish; ``track_one`` is
-``_track_program_multi`` (and ``_track_program`` for one hypothesis). They
-run as eager tensor code: the JAX package's single-dispatch program
-machinery, packed downloads and integer upload formats serve a
-remote-attached accelerator and have no counterpart here. What is kept of
-them is the hypothesis-axis bucket: ``register`` pads the rotation grid to a
+``register`` is the body of the JAX package's ``_register_program`` — the
+reference schedule or the funnel (a coarse pass over all hypotheses, optionally
+on a decimated mesh and at a smaller crop size, then the remaining iterations
+on the top K), plus the final polish; ``track_one`` is ``_track_program_multi``
+(and ``_track_program`` for one hypothesis). They run as eager tensor code:
+the JAX package's single-dispatch program machinery and integer upload formats
+serve a remote-attached accelerator and have no counterpart here. What is kept
+of them is the hypothesis-axis bucket: ``register`` pads the rotation grid to a
 multiple of 32 with copies of hypothesis 0, because the pads take part in
 ScoreNet's cross-pose attention and in the batch-axis neighbourhood of the
 geometric score's normals, so scores depend on them. Pads are masked to
 ``-inf`` after every score and dropped before the result.
+
+Host <-> device traffic goes through two helpers, ``_upload`` (pinned memory,
+asynchronous copy) and ``_PoseDownload`` (pinned buffer + an event recorded
+after the copy), so that ``track_one(sync=False)`` makes no call that waits
+for the card: the pose chain stays on the device between frames and nothing
+under ``track_one`` reads a device value on the host. That is not the same as
+running frames ahead of a busy card: a frame is a few thousand eager kernel
+launches, the CUDA runtime queues only so many before a launch call itself
+holds the host, and so the host's lead over the card is a part of a frame.
+Queueing whole frames ahead needs the frame as one CUDA graph.
 """
 
 from __future__ import annotations
@@ -37,6 +48,42 @@ from foundationpose_tpu_torch.ops import image as imops
 from foundationpose_tpu_torch.ops import raster
 
 HYP_BUCKET = 32  # register pads the hypothesis axis to a multiple of this
+
+
+def _upload(array, device, dtype=None):
+    """numpy array -> tensor on ``device``. On a CUDA device the array is
+    staged in pinned memory and copied asynchronously on the current stream
+    (the pinned block is recycled only after the copy has run); on the CPU it
+    is copied into a new tensor. ``dtype`` converts on the host first."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if dtype is not None:
+        t = t.to(dtype)
+    if device.type != "cuda":
+        return t.clone()  # never an alias of the caller's array
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class _PoseDownload:
+    """A device tensor on its way to the host: an asynchronous copy into a
+    pinned buffer and an event recorded behind it. ``ready()`` never waits;
+    ``numpy()`` waits for the event. On the CPU there is nothing to wait for."""
+
+    def __init__(self, tensor):
+        if tensor.is_cuda:
+            self._host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+            self._host.copy_(tensor, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = tensor, None
+
+    def ready(self):
+        return self._event is None or self._event.query()
+
+    def numpy(self):
+        if self._event is not None and not self._event.query():
+            self._event.synchronize()
+        return self._host.numpy().astype(np.float64)
 
 
 def preprocess_depth(depth, K):
@@ -95,10 +142,16 @@ class EstimatorConfig:
     # iterations, then re-score. 0 restores the exact reference schedule.
     final_refine_iterations: int = 2
     final_refine_top_k: int = 8
-    # funnel schedule and its coarse LOD / coarse crop size: not ported yet
+    # funnel schedule: refine ALL hypotheses for ``funnel_coarse_iterations``,
+    # score, then run the remaining iterations only on the top
+    # ``funnel_top_k``. 0 disables (every hypothesis gets every iteration).
     funnel_top_k: int = 0
     funnel_coarse_iterations: int = 1
+    # crop size of the coarse pass (the fine pass and every score that ranks
+    # the result stay at the full input size). 0 = full size.
     funnel_coarse_size: int = 0
+    # face budget of the coarse pass: it renders a vertex-clustering-decimated
+    # copy of the mesh. 0 = the full render mesh.
     funnel_coarse_faces: int = 0
     # debug artifact dumps: not ported yet
     debug: int = 0
@@ -108,9 +161,6 @@ class EstimatorConfig:
 
 def _check_supported(cfg: EstimatorConfig, device_mesh):
     later = []
-    if cfg.funnel_top_k > 0 or cfg.funnel_coarse_size or cfg.funnel_coarse_faces:
-        later.append("the funnel schedule (funnel_top_k / funnel_coarse_size / "
-                     "funnel_coarse_faces) comes with the funnel + coarse-LOD slice")
     if device_mesh is not None:
         later.append("device_mesh (hypothesis-axis sharding) comes with the "
                      "multi-device slice")
@@ -144,9 +194,24 @@ class FoundationPoseTorch:
             if part.device.type != self.device.type:
                 raise ValueError(f"{name} lives on {part.device}, estimator on {self.device}")
         self.reset_object(mesh, symmetry_tfs)
-        self.pose_last = None  # (4,4) float64, centred-mesh frame
+        self.pose_last = None
         self.scores = None
         self.poses = None
+
+    @property
+    def pose_last(self):
+        """Last pose of the centred mesh, (4,4) float64. While tracking, the
+        chain lives on the device; reading this waits for it."""
+        if self._pose_last_dev is not None and self._pose_last_np is None:
+            self._pose_last_np = _PoseDownload(self._pose_last_dev).numpy()[0]
+        return self._pose_last_np
+
+    @pose_last.setter
+    def pose_last(self, value):
+        self._pose_last_np = None if value is None else np.asarray(value, np.float64)
+        self._pose_last_dev = None  # (1,4,4) float32 tracking chain on the device
+        self._pose_hint = self._pose_last_np  # host copy that places the pre-crop window
+        self._pending = None  # _PoseDownload of [chain pose, user pose] in flight
 
     def _enable_backface_cull(self):
         self.refiner.cfg = dataclasses.replace(self.refiner.cfg, backface_cull=True)
@@ -169,6 +234,16 @@ class FoundationPoseTorch:
             centered, max_faces=self.cfg.max_render_faces, bucket=True,
             device=self.device,
         )
+        # optional LOD for the funnel's coarse pass
+        if self.cfg.funnel_coarse_faces > 0:
+            self.mesh_tensors_coarse = raster.make_mesh_tensors(
+                centered, max_faces=self.cfg.funnel_coarse_faces, bucket=True,
+                device=self.device,
+            )
+        else:
+            self.mesh_tensors_coarse = self.mesh_tensors
+        self._tf_centered_dev = _upload(
+            self.get_tf_to_centered_mesh(), self.device, torch.float32)
         self.rot_grid = poses_mod.make_rotation_grid(
             min_n_views=self.cfg.min_n_views,
             inplane_step=self.cfg.inplane_step,
@@ -219,7 +294,7 @@ class FoundationPoseTorch:
             extra[:, :3] *= dt
             extra[:, 3:] *= dr
             fan = np.concatenate([base, extra])
-        fan_t = torch.tensor(fan, device=self.device)
+        fan_t = _upload(fan, self.device)
         self._track_perturb_cache = (cache_key, fan_t)
         return fan_t
 
@@ -245,10 +320,10 @@ class FoundationPoseTorch:
         ob_mask = validate.check_mask(ob_mask, depth.shape, name="register")
         cfg, dev = self.cfg, self.device
 
-        K_t = torch.tensor(K, dtype=torch.float32, device=dev)
-        rgb_t = torch.tensor(self._as_u8(rgb), device=dev).float()
-        depth_t = torch.tensor(np.asarray(depth, np.float32), device=dev)
-        mask_t = torch.tensor(np.asarray(ob_mask) > 0, device=dev)
+        K_t = _upload(K, dev, torch.float32)
+        rgb_t = _upload(self._as_u8(rgb), dev).float()
+        depth_t = _upload(np.asarray(depth, np.float32), dev)
+        mask_t = _upload(np.asarray(ob_mask) > 0, dev)
         if cfg.register_mask_dilation:
             # gate the OBSERVED frame to a dilated margin around the
             # segmentation mask; zeroed depth reads as sensor holes
@@ -266,27 +341,45 @@ class FoundationPoseTorch:
         # pad the hypothesis axis to its bucket with copies of hypothesis 0;
         # a pad would score like the real entry it copies, so every score is
         # masked to -inf on the pads, which sends them to the tail of the sort
+        # (and keeps them out of the funnel's and the polish's top K)
         n_orig = len(self.rot_grid)
         grid = self.rot_grid[np.r_[0:n_orig, np.zeros((-n_orig) % HYP_BUCKET, int)]]
-        hyp = torch.tensor(grid, device=dev)
+        n_hyp = len(grid)
+        hyp = _upload(grid, dev)
         hyp[:, :3, 3] = center[None]
-        is_pad = torch.arange(len(grid), device=dev) >= n_orig
+        is_pad = torch.arange(n_hyp, device=dev) >= n_orig
         mt, diam = self.mesh_tensors, float(self.diameter)
-        refined = self.refiner.refine(mt, rgb_t, xyz_map, K_t, hyp, diam, iteration)
-        scores = self.scorer.score(mt, rgb_t, xyz_map, K_t, refined, diam)
-        scores = scores.masked_fill(is_pad, -torch.inf)
-        if cfg.final_refine_iterations > 0:
-            top_i = self._top_k(scores, min(cfg.final_refine_top_k, len(refined)))
-            top = self.refiner.refine(
-                mt, rgb_t, xyz_map, K_t, refined[top_i], diam,
-                cfg.final_refine_iterations,
-            )
-            top_s = self.scorer.score(mt, rgb_t, xyz_map, K_t, top, diam)
-            refined = refined.clone()
-            scores = scores.clone()
+        obs = (rgb_t, xyz_map, K_t)
+
+        def rescore_top(refined, scores, k, iterations):
+            """Refine the ``k`` best for ``iterations`` more on the full mesh
+            at full size, rescore them and lift them above the field (+100);
+            a rescored entry never resurrects a pad's -inf."""
+            top_i = self._top_k(scores, min(k, n_hyp))
+            top = self.refiner.refine(mt, *obs, refined[top_i], diam, iterations)
+            top_s = self.scorer.score(mt, *obs, top, diam)
+            refined, scores = refined.clone(), scores.clone()
             refined[top_i] = top
-            scores[top_i] = top_s + 100.0  # polished entries rank above the field
+            scores[top_i] = top_s + 100.0
+            return refined, scores.masked_fill(is_pad, -torch.inf)
+
+        n_coarse = min(cfg.funnel_coarse_iterations, iteration - 1)
+        if 0 < cfg.funnel_top_k < n_hyp and iteration > n_coarse > 0:
+            # coarse pass over ALL hypotheses, optionally on the LOD mesh and
+            # at a smaller crop size: its scores only select the top K
+            mtc, size = self.mesh_tensors_coarse, cfg.funnel_coarse_size or None
+            refined = self.refiner.refine(mtc, *obs, hyp, diam, n_coarse, out_size=size)
+            scores = self.scorer.score(mtc, *obs, refined, diam, out_size=size)
             scores = scores.masked_fill(is_pad, -torch.inf)
+            refined, scores = rescore_top(
+                refined, scores, cfg.funnel_top_k, iteration - n_coarse)
+        else:
+            refined = self.refiner.refine(mt, *obs, hyp, diam, iteration)
+            scores = self.scorer.score(mt, *obs, refined, diam)
+            scores = scores.masked_fill(is_pad, -torch.inf)
+        if cfg.final_refine_iterations > 0:
+            refined, scores = rescore_top(
+                refined, scores, cfg.final_refine_top_k, cfg.final_refine_iterations)
         order = torch.argsort(-scores, stable=True)[:n_orig]  # pads are the tail
         self.poses = refined[order].cpu().numpy().astype(np.float64)
         self.scores = scores[order].cpu().numpy()
@@ -295,6 +388,19 @@ class FoundationPoseTorch:
         return self.poses[0] @ self.get_tf_to_centered_mesh()
 
     # ------------------------------------------------------------------
+    def _crop_pose_hint(self):
+        """Freshest pose available on the HOST without waiting for the card:
+        the last pose read back, refreshed from the download in flight once it
+        has landed. It only PLACES the pre-crop window — a frame or two of
+        staleness is covered by ``track_crop_margin``; the pose chain itself
+        always continues from the exact pose on the device."""
+        if self._pending is not None and self._pending.ready():
+            self._pose_hint = self._pending.numpy()[0]
+            self._pending = None
+        if self._pose_hint is None:
+            self._pose_hint = self.pose_last  # waits (first call after a device-only chain)
+        return self._pose_hint
+
     def _pretrack_crop(self, rgb_u8, depth, K):
         """Fixed-size host crop around the last tracked pose. Returns
         (rgb, depth, K') with the principal point shifted (camera-frame
@@ -304,7 +410,7 @@ class FoundationPoseTorch:
         H, W = depth.shape
         if not S or (H <= S and W <= S):
             return rgb_u8, depth, K
-        t = self.pose_last[:3, 3]
+        t = self._crop_pose_hint()[:3, 3]
         z = max(float(t[2]), 1e-3)
         f = max(K[0, 0], K[1, 1])
         r = self.diameter * self.cfg.refiner.crop_ratio / 2.0
@@ -328,13 +434,19 @@ class FoundationPoseTorch:
         perturbation fan, score, keep the argmax (the unperturbed chain wins
         ties through a +0.01 bonus). With ``track_hypotheses=1`` it is
         refine-only and — as in the JAX package — ungated. Returns the (4,4)
-        float64 pose of the ORIGINAL mesh in camera."""
-        if not sync:
-            raise NotImplementedError(
-                "sync=False streaming comes with the MultiObjectTracker / "
-                "streaming slice of the port"
-            )
-        if self.pose_last is None:
+        float64 pose of the ORIGINAL mesh in camera.
+
+        ``sync=False`` streams: the frame's work is enqueued on the current
+        CUDA stream and a (4,4) float32 tensor on the device is returned at
+        once (the same pose; converting it, or reading ``pose_last``, waits).
+        The chain pose never leaves the device and no call below reads a
+        device value or synchronises, so the next frame can be prepared and
+        enqueued while this one runs. The host's lead is bounded all the same:
+        a frame is a few thousand launches, and once the CUDA runtime's launch
+        queue is full a launch call holds the host until the card has caught
+        up (see the module docstring). On the CPU the tensor is simply
+        returned. Both modes give the same poses."""
+        if self._pose_last_dev is None and self._pose_last_np is None:
             raise RuntimeError("call register() before track_one()")
         iteration = int(iteration or self.cfg.track_iterations)
         K = np.asarray(validate.check_intrinsics(K), dtype=np.float64)
@@ -350,11 +462,14 @@ class FoundationPoseTorch:
         depth_q = (np.clip(depth, 0.0, None) * (1.0 / scale) + 0.5).astype(np.uint16)
         depth = depth_q.astype(np.float32) * np.float32(scale)
 
+        # nothing below reads a device value on the host
         dev = self.device
-        K_t = torch.tensor(K, dtype=torch.float32, device=dev)
-        rgb_t = torch.tensor(rgb_u8, device=dev).float()
-        _, xyz_map = preprocess_depth(torch.tensor(depth, device=dev), K_t)
-        pose_last = torch.tensor(self.pose_last, dtype=torch.float32, device=dev)[None]
+        K_t = _upload(K, dev, torch.float32)
+        rgb_t = _upload(rgb_u8, dev).float()
+        _, xyz_map = preprocess_depth(_upload(depth, dev), K_t)
+        pose_last = self._pose_last_dev
+        if pose_last is None:
+            pose_last = _upload(self._pose_last_np[None], dev, torch.float32)
         mt, diam = self.mesh_tensors, float(self.diameter)
         if self.cfg.track_hypotheses > 1:
             gate = int(self.cfg.track_gate_px)
@@ -371,12 +486,22 @@ class FoundationPoseTorch:
                 mt, rgb_t, xyz_map, K_t, refined, diam, gate_px=gate
             ).clone()
             scores[0] += 0.01  # stickiness: the unperturbed chain wins ties
-            best = refined[torch.argmax(scores)]
+            # index_select: indexing with a 0-d device tensor would read it on the host
+            best = refined.index_select(0, torch.argmax(scores).reshape(1))
         else:
             best = self.refiner.refine(
                 mt, rgb_t, xyz_map, K_t, pose_last, diam, iteration
-            )[0]
-        tf_c = torch.tensor(self.get_tf_to_centered_mesh(), dtype=torch.float32, device=dev)
-        out = (best @ tf_c).cpu().numpy().astype(np.float64)
-        self.pose_last = best.cpu().numpy().astype(np.float64)
-        return out
+            )
+        out = best[0] @ self._tf_centered_dev
+        self._pose_last_dev = best
+        self._pose_last_np = None
+        landing = _PoseDownload(torch.stack([best[0], out]))
+        if not sync:
+            # the pre-crop hint and any later read of pose_last pick the
+            # download up once it has landed
+            self._pending = landing
+            return out
+        arr = landing.numpy()
+        self._pose_last_np = self._pose_hint = arr[0]
+        self._pending = None
+        return arr[1]

@@ -77,23 +77,36 @@ class PoseRefiner:
         return poses
 
 
-
-def refine_once(net, mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
-                *, cfg: RefinerConfig, out_size=None, gate_px=0):
-    size = int(out_size or cfg.input_size)
-    data = make_crop_batch(
+def refine_inputs(mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
+                  *, cfg: RefinerConfig, out_size=None, gate_px=0):
+    """The crop batch RefineNet reads for these poses (``inputA``, ``inputB``,
+    ``tf_to_crops``, ...)."""
+    return make_crop_batch(
         mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
-        crop_ratio=cfg.crop_ratio, out_size=size,
+        crop_ratio=cfg.crop_ratio, out_size=int(out_size or cfg.input_size),
         normalize_xyz=cfg.normalize_xyz, z_invalid_thres=0.001,
         backface_cull=cfg.backface_cull, gate_px=int(gate_px),
     )
-    out = net(data["inputA"], data["inputB"])
-    poses = geo.as_f32(poses, data["inputA"].device)
+
+
+def apply_net_output(out, poses, K, tf_to_crops, mesh_diameter,
+                     *, cfg: RefinerConfig, out_size=None):
+    """Decode RefineNet's output for ``poses`` and apply it egocentrically."""
+    poses = geo.as_f32(poses, out["trans"].device)
     trans_delta, rot_mat_delta = decode_delta(
         out, cfg, mesh_diameter, poses=poses, K=geo.as_f32(K, poses.device),
-        tf_to_crops=data["tf_to_crops"], input_size=size,
+        tf_to_crops=tf_to_crops, input_size=int(out_size or cfg.input_size),
     )
     return geo.egocentric_delta_pose_to_pose(poses, trans_delta, rot_mat_delta)
+
+
+def refine_once(net, mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
+                *, cfg: RefinerConfig, out_size=None, gate_px=0):
+    data = refine_inputs(mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
+                         cfg=cfg, out_size=out_size, gate_px=gate_px)
+    out = net(data["inputA"], data["inputB"])
+    return apply_net_output(out, poses, K, data["tf_to_crops"], mesh_diameter,
+                            cfg=cfg, out_size=out_size)
 
 
 def _deepim_trans_delta(out_trans, poses, K, tf_to_crops, input_size):
@@ -123,9 +136,11 @@ def decode_delta(out, cfg: RefinerConfig, mesh_diameter, *, poses=None, K=None,
         if cfg.normalize_xyz:
             trans_delta = out["trans"] * (mesh_diameter / 2.0)
         else:
-            tn = torch.tensor(cfg.trans_normalizer, dtype=torch.float32,
-                              device=out["trans"].device).reshape(1, 3)
-            trans_delta = torch.tanh(out["trans"]) * tn
+            # column by column: a (1,3) tensor of the normalizer would be an
+            # upload, and an upload makes the host wait for the card
+            th = torch.tanh(out["trans"])
+            trans_delta = torch.stack(
+                [th[:, i] * float(tn) for i, tn in enumerate(cfg.trans_normalizer)], dim=-1)
     elif cfg.trans_rep == "deepim":
         trans_delta = _deepim_trans_delta(
             out["trans"], poses, K, tf_to_crops,

@@ -149,7 +149,8 @@ class PositionalEmbedding(nn.Module):
         if grid_hw is not None and train_hw is not None and tuple(grid_hw) != tuple(train_hw):
             key = (tuple(train_hw), tuple(grid_hw), x.device)
             if key not in self._regrid_cache:
-                tab = regrid_positions(self.pe.cpu().numpy(), train_hw, grid_hw)
+                tab = regrid_positions(
+                    sinusoidal_positions(self.max_len, self.d_model), train_hw, grid_hw)
                 self._regrid_cache[key] = torch.from_numpy(tab).to(x.device)
             return x + self._regrid_cache[key].to(x.dtype)[None]
         return x + self.pe[: x.shape[1]].to(x.dtype)[None]

@@ -271,6 +271,10 @@ def test_register_translation_only_fallback(world):
 
 
 def test_device_rule_and_unported_settings(world):
+    """``device=None`` raises without a card; what is still to be ported
+    (``device_mesh``, debug dumps, ``--weights``) is refused; the funnel
+    settings, ``sync=False`` and ``--mode geometric``, refused by the first
+    slices of the port, are accepted now."""
     mesh = world["scene"]["mesh"]
     if not torch.cuda.is_available():
         for make in (lambda: PoseRefiner(RefinerConfig()), lambda: PoseScorer(ScorerConfig()),
@@ -279,23 +283,80 @@ def test_device_rule_and_unported_settings(world):
             with pytest.raises(RuntimeError, match="CUDA"):
                 make()
     E = est_mod.EstimatorConfig
-    for cfg in (E(funnel_top_k=16), E(funnel_coarse_size=112), E(funnel_coarse_faces=512),
-                E(debug=1)):
-        with pytest.raises(NotImplementedError):
-            est_mod.FoundationPoseTorch(mesh, config=cfg, device="cpu")
+    parts = dict(refiner=world["est"].refiner, scorer=world["est"].scorer, device="cpu")
     with pytest.raises(NotImplementedError):
-        est_mod.FoundationPoseTorch(mesh, device="cpu", device_mesh=object())
+        est_mod.FoundationPoseTorch(mesh, config=E(debug=1), **parts)
     with pytest.raises(NotImplementedError):
-        world["est"].track_one(world["scene"]["rgb"], world["scene"]["depth"],
-                               world["scene"]["K"], sync=False)
+        est_mod.FoundationPoseTorch(mesh, device_mesh=object(), **parts)
+    for cfg in (E(funnel_top_k=16), E(funnel_coarse_size=112), E(funnel_coarse_faces=512)):
+        funnel = est_mod.FoundationPoseTorch(mesh, config=cfg, **parts)
+        # 36 faces are under any face budget here: the coarse tensors are a
+        # second, equal set only when a budget is set
+        assert (funnel.mesh_tensors_coarse is funnel.mesh_tensors) == (cfg.funnel_coarse_faces == 0)
     from foundationpose_tpu_torch.apps import run_pose
 
     base = ["--rgb", "a", "--depth", "b", "--intrinsics", "c", "--mesh", "d", "--mask", "e"]
-    for extra in (["--mode", "geometric"], ["--weights", "w"]):
-        with pytest.raises(NotImplementedError):
-            run_pose.main(base + extra)
+    with pytest.raises(NotImplementedError):
+        run_pose.main(base + ["--weights", "w"])
+    with pytest.raises(FileNotFoundError):  # geometric mode is taken; the files are missing
+        run_pose.main(base + ["--mode", "geometric", "--device", "cpu"])
     fresh = est_mod.FoundationPoseTorch(
-        mesh, config=E(min_n_views=12, inplane_step=120),
-        refiner=world["est"].refiner, scorer=world["est"].scorer, device="cpu")
-    with pytest.raises(RuntimeError, match="register"):
-        fresh.track_one(world["scene"]["rgb"], world["scene"]["depth"], world["scene"]["K"])
+        mesh, config=E(min_n_views=12, inplane_step=120), **parts)
+    for sync in (True, False):
+        with pytest.raises(RuntimeError, match="register"):
+            fresh.track_one(world["scene"]["rgb"], world["scene"]["depth"],
+                            world["scene"]["K"], sync=sync)
+
+
+def test_streaming_track_equals_sync(world):
+    """``track_one(sync=False)`` frame by frame against ``sync=True`` from the
+    same start pose: the returned (4,4) device tensor, and ``pose_last`` after
+    the last frame, within 1e-5 (the same float32 computation; on the CPU they
+    are the same numbers). The chain stays on the device between frames, the
+    pre-crop window is placed from the last pose that has landed on the host,
+    and setting ``pose_last`` resets the chain."""
+    est, s = world["est"], world["scene"]
+    start = s["gt"] @ np.linalg.inv(est.get_tf_to_centered_mesh())
+    frames = [(rgb.astype(np.float32), depth) for _, rgb, depth in demo.motion_frames(s, 3)]
+
+    est.pose_last = start
+    assert est._pose_last_dev is None and est._pending is None
+    synced = [est.track_one(rgb, depth, s["K"]) for rgb, depth in frames]
+    last_synced = est.pose_last.copy()
+    assert synced[0].dtype == np.float64 and est._pose_last_dev is not None
+
+    est.pose_last = start  # resets the chain
+    assert est._pose_last_dev is None and np.array_equal(est.pose_last, start)
+    for i, (rgb, depth) in enumerate(frames):
+        out = est.track_one(rgb, depth, s["K"], sync=False)
+        assert isinstance(out, torch.Tensor) and out.shape == (4, 4)
+        assert out.dtype == torch.float32 and out.device.type == "cpu"
+        # the chain is on the device only; the download waits to be picked up
+        assert est._pose_last_np is None and est._pending is not None
+        np.testing.assert_allclose(out.numpy(), synced[i], atol=1e-5)
+        if i == 1:
+            # the hint that placed this frame's window was frame 0's pose, landed
+            np.testing.assert_allclose(
+                est._pose_hint @ est.get_tf_to_centered_mesh(), synced[0], atol=1e-5)
+    np.testing.assert_allclose(est.pose_last, last_synced, atol=1e-5)
+    assert est.pose_last.dtype == np.float64
+    assert np.abs(last_synced[:3, 3] - start[:3, 3]).max() > 5e-3  # the object did move
+
+    # a mixed sequence continues the same chain
+    again = est.track_one(*frames[2], s["K"], sync=True)
+    est.pose_last = last_synced
+    np.testing.assert_allclose(est.track_one(*frames[2], s["K"]), again, atol=1e-5)
+
+
+def test_upload_helper_copies_and_converts():
+    """The one upload path of ``register`` and ``track_one``: on the CPU a
+    copy (never an alias of the caller's array), converted on the host."""
+    a = np.arange(6, dtype=np.float64).reshape(2, 3)
+    t = est_mod._upload(a, torch.device("cpu"), torch.float32)
+    assert t.dtype == torch.float32 and t.shape == (2, 3)
+    a[0, 0] = 99.0
+    assert t[0, 0] == 0.0
+    m = est_mod._upload(np.array([[True, False]])[:, ::-1], torch.device("cpu"))
+    assert m.dtype == torch.bool and m.tolist() == [[False, True]]
+    d = est_mod._PoseDownload(torch.eye(4))
+    assert d.ready() and d.numpy().dtype == np.float64

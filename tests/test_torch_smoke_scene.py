@@ -2,11 +2,14 @@
 
 ``chip_smoke.py`` gates the port's pose at ADD-S <= 10 % of the diameter.
 That gate only means something on a scene the reference clears with margin
-at the same settings, so this test runs the JAX package's learned-hybrid
-``register`` (252 hypotheses, 160 px, 5 + 2 iterations) and five
-``track_one`` frames (8 hypotheses, 2 iterations, gate 12) on that scene on
-the CPU and holds each pose to half the gate. A full-width register on the CPU takes
-minutes, so the test is marked ``slow``; run it with
+at the same settings, so this test runs the JAX package's ``register`` (252
+hypotheses, 160 px) and five ``track_one`` frames (8 hypotheses, 2
+iterations, gate 12) on that scene on the CPU and holds each pose to half the
+gate, in the three configurations the smoke run drives: learned-hybrid with
+the full schedule (5 + 2 iterations), learned-hybrid with the documented
+funnel (top 64 after 1 coarse iteration at 112 px), and geometric mode with
+the ``run_pose`` schedule (10 + 8 ICP iterations). A full-width register on
+the CPU takes minutes, so the test is marked ``slow``; run it with
 
     python -m pytest tests/test_torch_smoke_scene.py -m slow -s
 """
@@ -22,13 +25,25 @@ from foundationpose_tpu_torch.apps import demo_synthetic as demo
 
 
 @pytest.mark.slow
-def test_jax_package_clears_smoke_scene_with_margin():
+@pytest.mark.parametrize("mode", ["learned_hybrid", "learned_hybrid_funnel", "geometric"])
+def test_jax_package_clears_smoke_scene_with_margin(mode):
     scene = demo.make_scene((480, 640), device="cpu")
     m = scene["mesh"]
     mesh = jmeshio.Mesh(m.vertices, m.faces, vertex_colors=m.vertex_colors)
-    refiner, scorer, _ = agnostic.load_agnostic(demo.default_weights_dir())
-    est = FoundationPoseTPU(mesh, config=EstimatorConfig(), refiner=refiner,
-                            scorer=HybridScorer(scorer))
+    if mode == "geometric":
+        from foundationpose_tpu.engine.geometric import (
+            GeometricConfig, GeometricRefiner, GeometricScorer,
+        )
+
+        est = FoundationPoseTPU(
+            mesh, config=EstimatorConfig(register_iterations=10, final_refine_iterations=8),
+            refiner=GeometricRefiner(GeometricConfig()), scorer=GeometricScorer(GeometricConfig()))
+    else:
+        cfg = (EstimatorConfig(funnel_top_k=64, funnel_coarse_iterations=1, funnel_coarse_size=112)
+               if mode == "learned_hybrid_funnel" else EstimatorConfig())
+        refiner, scorer, _ = agnostic.load_agnostic(demo.default_weights_dir())
+        est = FoundationPoseTPU(mesh, config=cfg, refiner=refiner, scorer=HybridScorer(scorer))
+    print(f"JAX package, CPU, {mode}:")
     assert est.rot_grid.shape[0] == 252
     pose = est.register(scene["K"], scene["rgb"].astype(np.float32),
                         scene["depth"], scene["mask"].astype(np.uint8))
