@@ -15,12 +15,21 @@ bf16 nets from the shipped object-agnostic checkpoint where a net runs):
   with the ``run_pose`` schedule, then ``track_one``;
 - ``MultiObjectTracker.track`` on four objects, each in its own stream;
 - streaming ``track_one(sync=False)``, held against ``sync=True`` and run
-  under ``torch.cuda.set_sync_debug_mode("error")``.
+  under ``torch.cuda.set_sync_debug_mode("error")``;
+- the accuracy harness over the ``evalsuite`` scenes (four scenes, depth cut
+  to two register trials and ten tracked frames, geometric and
+  learned_hybrid, every schedule), its renders held against the plain
+  rasterizer on the card;
+- the I/O entry points on trees it writes with the port's PNG writer:
+  ``eval_bop`` on a BOP tree, ``run_track`` (streamed and synchronous) on a
+  YCBInEOAT tree, ``run_pose`` at its defaults and at ``--debug 3``, and the
+  depth-only auto-mask, with cv2 and PIL blocked where they are installed.
 
 It builds every CUDA kernel of those paths (K1s: face setup and tile binning,
 K1r: the crop rasterizer) from the sources in this checkout, holds each
-kernel against its plain PyTorch version on the card, and counts each
-kernel's launches on every path from zero. Imports only
+kernel against its plain PyTorch version on the card — also at 480x640, B = 1,
+on every mesh of the evaluation suite —, and counts each kernel's launches
+on every path from zero. Imports only
 ``foundationpose_tpu_torch``. Every phase prints one JSON line; any failed
 phase exits non-zero. Without a CUDA device it exits 1 and prints no result.
 
@@ -149,7 +158,7 @@ def bound(nbytes, ops, **extra):
             "bytes": nbytes, "operations": ops, **extra}
 
 
-def k1_bounds(raster_cuda, mt, poses, K, tfs, scratch, out, size=S):
+def k1_bounds(raster_cuda, mt, poses, K, tfs, scratch, out, size=S, hw=None):
     """Bounds of one render call on these inputs, from what this run's data
     needs. ``call``: the arguments read once and the outputs written once
     (``rec``, ``bins`` and ``vtab`` are scratch between the two kernels and do
@@ -161,8 +170,9 @@ def k1_bounds(raster_cuda, mt, poses, K, tfs, scratch, out, size=S):
     bytes written (48 read), an invalid one's 16, and every bin word is
     written and read."""
     B, V, F = poses.shape[0], mt["pos"].shape[0], mt["faces"].shape[0]
+    H, W = hw or (size, size)
     rec, bins = scratch["rec"], scratch["bins"]
-    tests = raster_cuda.tile_face_tests(rec, size, size)
+    tests = raster_cuda.tile_face_tests(rec, H, W)
     n_valid = int((rec[..., 12] <= rec[..., 13]).sum().item())
     hit = int(out["mask"].sum().item())
     px_ops = hit * (OPS_PER_HIT_PIXEL + (OPS_PER_TEXEL_PIXEL if "tex" in mt else 0))
@@ -173,7 +183,7 @@ def k1_bounds(raster_cuda, mt, poses, K, tfs, scratch, out, size=S):
     colour = tensor_bytes({k: v for k, v in mt.items() if k in ("tex", "uv", "vertex_color")})
     rec_written = n_valid * 64 + (B * F - n_valid) * 16
     scratch_read = n_valid * 48 + tensor_bytes(bins, scratch["vtab"])
-    extra = {"pixel_face_tests": tests, "pixel_face_tests_untiled": B * size * size * F,
+    extra = {"pixel_face_tests": tests, "pixel_face_tests_untiled": B * H * W * F,
              "valid_faces": n_valid, "hit_pixels": hit}
     return {
         "call": bound(geometry + colour + tensor_bytes(out), setup_ops + raster_ops, **extra),
@@ -357,6 +367,40 @@ def check_deterministic(raster_cuda, torch, mt, poses, K, tfs, name):
             fail(f"{name}: two calls on the same inputs differ in {key}")
 
 
+def time_render(raster, raster_cuda, torch, name, mt, poses, K, tfs, hw, with_normal, cull=True):
+    """One render call's times beside its bounds: the call (both wrappers, CUDA
+    events), each kernel alone (events round its wrapper, and the profiler's
+    device time) and the plain versions, in turns plain, kernels, kernels,
+    plain."""
+    kw = dict(out_hw=hw, backface_cull=cull, with_normal=with_normal)
+    setup_fn = lambda: raster_cuda.setup_cuda(mt, poses, K, tfs, hw, backface_cull=cull)
+    plain_setup_fn = lambda: raster_cuda.tile_bins(
+        raster_cuda.make_kernel_inputs(mt, poses, K, tfs, backface_cull=cull)["rec"], *hw)
+    scratch = setup_fn()
+    plain_fn = lambda: raster.render_crops(mt, poses, K, tfs, **kw)
+    call_fn = lambda: raster_cuda.render_crops(mt, poses, K, tfs, **kw)
+    raster_fn = lambda: raster_cuda.rasterize_cuda(mt, scratch, hw, True, 0.8, 0.5, with_normal)
+    p1 = event_ms(plain_fn, 1)
+    c1 = event_ms(call_fn, 30)
+    c2 = event_ms(call_fn, 30)
+    p2 = event_ms(plain_fn, 1)
+    bounds = k1_bounds(raster_cuda, mt, poses, K, tfs, scratch, call_fn(), hw=hw)
+    dev_ms = device_ms(call_fn, 20, ("setup_kernel", "raster_kernel"))
+    return {
+        "case": name, "with_normal": with_normal,
+        "shape": f"B{poses.shape[0]} x {hw[0]}x{hw[1]} px, {mt['faces'].shape[0]}-face bucket"
+                 + (", textured" if "tex" in mt else "") + (", culled, " if cull else ", unculled, ")
+                 + ("with normals" if with_normal else "no normals"),
+        "ms": min(c1, c2), "ms_runs": [c1, c2],
+        "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+        "K1s_ms": event_ms(setup_fn, 50), "K1r_ms": event_ms(raster_fn, 50),
+        "K1s_device_ms": dev_ms["setup_kernel"], "K1r_device_ms": dev_ms["raster_kernel"],
+        "K1s_plain_ms": event_ms(plain_setup_fn, 3),
+        **bounds["call"],
+        "K1s_bound": bounds["K1s"], "K1r_bound": bounds["K1r"],
+    }
+
+
 def check_kernels(scene, torch):
     """K1s and K1r against their plain versions on the card at the main
     path's shapes, then their times beside their bounds."""
@@ -450,34 +494,8 @@ def check_kernels(scene, torch):
     # funnel's shapes on the demo mesh and the 4096-face one
     def time_call(name, mt, diameter, poses, size, with_normal):
         tfs = geo.compute_crop_window_tf_batch(poses, K, 1.2, diameter, (size, size))
-        hw = (size, size)
-        kw = dict(out_hw=hw, backface_cull=True, with_normal=with_normal)
-        setup_fn = lambda: raster_cuda.setup_cuda(mt, poses, K, tfs, hw, backface_cull=True)
-        plain_setup_fn = lambda: raster_cuda.tile_bins(
-            raster_cuda.make_kernel_inputs(mt, poses, K, tfs, backface_cull=True)["rec"], *hw)
-        scratch = setup_fn()
-        plain_fn = lambda: raster.render_crops(mt, poses, K, tfs, **kw)
-        call_fn = lambda: raster_cuda.render_crops(mt, poses, K, tfs, **kw)
-        raster_fn = lambda: raster_cuda.rasterize_cuda(mt, scratch, hw, True, 0.8, 0.5, with_normal)
-        # in turns: plain, kernels, kernels, plain
-        p1 = event_ms(plain_fn, 1)
-        c1 = event_ms(call_fn, 30)
-        c2 = event_ms(call_fn, 30)
-        p2 = event_ms(plain_fn, 1)
-        bounds = k1_bounds(raster_cuda, mt, poses, K, tfs, scratch, call_fn(), size)
-        dev_ms = device_ms(call_fn, 20, ("setup_kernel", "raster_kernel"))
-        return {
-            "case": name, "with_normal": with_normal,
-            "shape": f"B{poses.shape[0]} x {size}x{size} px, {mt['faces'].shape[0]}-face bucket, "
-                     "culled, " + ("with normals" if with_normal else "no normals"),
-            "ms": min(c1, c2), "ms_runs": [c1, c2],
-            "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
-            "K1s_ms": event_ms(setup_fn, 50), "K1r_ms": event_ms(raster_fn, 50),
-            "K1s_device_ms": dev_ms["setup_kernel"], "K1r_device_ms": dev_ms["raster_kernel"],
-            "K1s_plain_ms": event_ms(plain_setup_fn, 3),
-            **bounds["call"],
-            "K1s_bound": bounds["K1s"], "K1r_bound": bounds["K1r"],
-        }
+        return time_render(raster, raster_cuda, torch, name, mt, poses, K, tfs, (size, size),
+                           with_normal)
 
     curve = [time_call(name, mt, diameter, p256, S, with_normal)
              for name, mt, diameter in meshes for with_normal in (False, True)]
@@ -522,9 +540,13 @@ def reset_launches(raster_cuda):
 
 
 def expect_launches(raster_cuda, before, n, what):
-    """Both kernels must have been launched ``n`` times since ``before``."""
+    """Both kernels must have been launched ``n`` times since ``before``
+    (``n=None``: as often as each other, and at least once)."""
     got = {k: n_now - before[k] for k, n_now in raster_cuda.LAUNCHES.items()}
-    if any(v != n for v in got.values()):
+    if n is None:
+        if len(set(got.values())) != 1 or min(got.values()) < 1:
+            fail(f"{what} launched {got}, expected both kernels equally often, at least once")
+    elif any(v != n for v in got.values()):
         fail(f"{what} launched {got}, expected {n} of each kernel")
     return got
 
@@ -974,6 +996,400 @@ def run_streaming(torch, metrics, raster_cuda, est, chain, scene, frames_in, smi
     return add_counts({}, counts)
 
 
+def centred_diameter(meshio, mesh):
+    """The estimator's diameter: of the mesh centred on its bounding box."""
+    b = mesh.bounds
+    return meshio.compute_mesh_diameter(mesh=mesh.translated(-(b[0] + b[1]) / 2))
+
+
+def check_suite_kernels(torch, raster, raster_cuda):
+    """K1s and K1r against their plain versions at the shapes the evaluation
+    suite gives them: every mesh ``build_suite()`` makes and every distractor,
+    at the bucket ``SceneRenderer`` gives it, rendered into the 480x640 frame
+    at B = 1 (the target at its first register pose, a distractor at its static
+    pose), unculled with normals as ``SceneRenderer`` renders. Then one timed
+    call per face bucket, vertex-coloured and textured. Returns the rows."""
+    from foundationpose_tpu_torch.evalsuite import scenes
+
+    dev = torch.device("cuda")
+    K = torch.tensor(scenes.K_DEFAULT, dtype=torch.float32, device=dev)
+    hw = tuple(scenes.HW_DEFAULT)
+    eye = torch.eye(3, device=dev)[None]
+    cases, seen = [], set()
+    for spec in scenes.build_suite():
+        r = scenes.SceneRenderer(spec, device=dev)
+        cases.append((spec.name, r.mt, r.register_poses()[0]))
+        for i, (mesh, pose) in enumerate(spec.distractors):
+            if id(mesh) not in seen:
+                seen.add(id(mesh))
+                mt = raster.make_mesh_tensors(mesh, max_faces=4096, bucket=True, device=dev)
+                cases.append((f"{spec.name} distractor {i}", mt, pose))
+    rows, setup_rows, timed_rows, buckets = [], [], [], set()
+    for name, mt, pose in cases:
+        poses = torch.tensor(np.asarray(pose, np.float32)[None], device=dev)
+        tag = {"case": f"suite {name}", "batch": "B1 x 480x640", "cull": False}
+        srow, scratch = compare_setup(raster, raster_cuda, torch, mt, poses, K, eye, False, tag, hw)
+        setup_rows.append(srow)
+        kw = dict(out_hw=hw, backface_cull=False, with_normal=True)
+        rows.append(compare_with_plain(raster, raster_cuda, torch, mt, poses, K, eye, kw,
+                                       {**tag, "with_normal": True}, scratch))
+        bucket = (int(mt["faces"].shape[0]), "tex" in mt)
+        if bucket not in buckets:
+            buckets.add(bucket)
+            timed_rows.append(time_render(raster, raster_cuda, torch, f"suite {name}", mt, poses,
+                                          K, eye, hw, True, cull=False))
+    return {"n_cases": len(rows), "meshes": [c[0] for c in cases],
+            "max_winner_flips_of_common": max(r["winner_flips_of_common"] for r in rows),
+            "min_mask_agree": min(r["mask_agree"] for r in rows),
+            "winners_lost_to_binning": sum(r["winners_lost_to_binning"] for r in rows),
+            "worst_abs_err": {key: max(r[f"{key}_max_abs_err"] for r in rows)
+                              for key, _ in COMPARE_TOL},
+            "setup_worst": {k: max(r[k] for r in setup_rows)
+                            for k in ("vtab_max_abs_err", "bbox_px_max_abs_err",
+                                      "invz_max_rel_err", "coeff_max_rel_err",
+                                      "validity_flags_differ")},
+            "min_bins_agree": min(r["bins_agree"] for r in setup_rows),
+            "times_full_frame": timed_rows}
+
+
+EVAL_SCENES = ("box_gray", "compound_asym", "sphere_occluded", "compound_clutter")
+# Scenes whose every register trial and tracked frame must land within
+# ADDS_GATE of the diameter, per mode. Geometric mode misses box_gray and
+# compound_asym in the JAX package's own record too (ACCURACY_r05.json, first
+# two trials: 27.9 and 26.1 mm = 18 % and 10 % of the diameters; flat faces
+# leave the ICP under-constrained), so it is gated on the scene of the four
+# that record clears; both modes' trials are printed beside that record.
+EVAL_GATED = {"geometric": ("sphere_occluded",), "learned_hybrid": ("box_gray", "compound_asym")}
+EVAL_DEPTH = dict(n_register=2, n_track=10)
+
+
+def run_evalsuite(torch, metrics, raster, raster_cuda, smi):
+    """The accuracy suite on the card. (1) ``SceneRenderer.render`` through
+    the kernels against the same render through the plain rasterizer on the
+    card, every scene. (2) The harness at full width (480x640, 252 hypotheses,
+    160 px, bf16 nets from weights/agnostic), depth cut to two register trials
+    and ten tracked frames, on four scenes, in geometric and learned_hybrid
+    mode with every schedule; gated on the two scenes every mode clears, and
+    printed beside ``ACCURACY_r05.json``'s same trials (``EVAL_GATED`` says
+    which scenes gate which mode)."""
+    from foundationpose_tpu_torch.core import meshio
+    from foundationpose_tpu_torch.evalsuite import harness, scenes
+
+    renders = []
+    for spec in scenes.build_suite():
+        before = dict(raster_cuda.LAUNCHES)
+        with plain_rasterizer(raster, raster_cuda):
+            rp = scenes.SceneRenderer(spec, device="cuda")
+            gt = rp.register_poses()[0]
+            prgb, pdepth, pvis, _ = rp.render(gt)
+        expect_launches(raster_cuda, before, 0, "SceneRenderer through the plain rasterizer")
+        rgb, depth, vis, _ = scenes.SceneRenderer(spec, device="cuda").render(gt)
+        same = vis == pvis
+        row = {"scene": spec.name, "mask_agree": float(same.mean()),
+               "mask_pixels_differ": int((~same).sum()),
+               "depth_max_abs_err": float(np.abs(depth - pdepth)[same].max()),
+               "rgb_max_abs_err": float(np.abs(rgb - prgb)[same].max())}
+        renders.append(row)
+        if row["mask_agree"] < 0.999 or row["depth_max_abs_err"] > 2e-3 or not vis.any():
+            say("evalsuite", failed=row)
+            fail(f"SceneRenderer on the card disagrees with the plain rasterizer: {row}")
+
+    track_adds = []  # per _track_block call: {scene: [ADD-S of every frame]}
+    real_block, real_adds, real_suite = harness._track_block, metrics.adds_err, scenes.build_suite
+
+    def track_block(suite, *a, **kw):
+        names = {id(sp.mesh.vertices): sp.name for sp in suite}
+        frames = {}
+
+        def adds(pred, gt, pts):
+            v = real_adds(pred, gt, pts)
+            frames.setdefault(names[id(pts)], []).append(v)
+            return v
+
+        metrics.adds_err = adds
+        try:
+            return real_block(suite, *a, **kw)
+        finally:
+            metrics.adds_err = real_adds
+            track_adds.append(frames)
+
+    harness._track_block = track_block
+    scenes.build_suite = lambda quick=False: [dataclasses.replace(sp, **EVAL_DEPTH)
+                                              for sp in real_suite(quick)]
+    try:
+        res, ms, counts = drive_counted(
+            raster_cuda, torch, lambda: harness.run_accuracy(
+                modes=("geometric", "learned_hybrid"), scene_names=EVAL_SCENES, device="cuda"),
+            None, "evalsuite harness, 4 scenes x (geometric + learned_hybrid)")
+    finally:
+        harness._track_block, scenes.build_suite = real_block, real_suite
+    specs = {sp.name: sp for sp in real_suite() if sp.name in EVAL_SCENES}
+    diam = {n: centred_diameter(meshio, sp.mesh) for n, sp in specs.items()}
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "ACCURACY_r05.json")) as f:
+        r05 = json.load(f)["modes"]
+    beside, worst = [], {}
+    for m_i, mode in enumerate(("geometric", "learned_hybrid")):
+        for sched, block in res["modes"][mode]["register"].items():
+            for name, sc in block.get("scenes", {}).items():
+                ref = r05[mode]["register"].get(sched, {}).get("scenes", {}).get(name, {})
+                beside.append({"mode": mode, "schedule": sched, "scene": name,
+                               "adds_mm": [a * 1000 for a in sc["adds"]],
+                               "r05_adds_mm": [a * 1000 for a in ref.get("adds", [])[:2]]})
+                if name in EVAL_GATED[mode]:
+                    worst[f"{mode} register {sched} {name}"] = max(sc["adds"]) / diam[name]
+        for name in EVAL_GATED[mode]:
+            worst[f"{mode} track {name}"] = max(track_adds[m_i][name]) / diam[name]
+        if any(len(track_adds[m_i][n]) != EVAL_DEPTH["n_track"] for n in EVAL_SCENES):
+            fail(f"evalsuite: {mode} did not track {EVAL_DEPTH['n_track']} frames per scene")
+    for k, v in worst.items():
+        if v > ADDS_GATE:
+            FAILURES.append(f"evalsuite {k}: ADD-S {v:.1%} of the diameter exceeds {ADDS_GATE:.0%}")
+    track = {mode: {n: {"adds_mm": [a * 1000 for a in track_adds[i][n]],
+                        "auc_adds": res["modes"][mode]["track"]["scenes"][n]["auc_adds"],
+                        "ate_m": res["modes"][mode]["track"]["scenes"][n]["ate_m"],
+                        "r05_auc_adds": r05[mode]["track"]["scenes"][n]["auc_adds"]}
+                     for n in EVAL_SCENES}
+             for i, mode in enumerate(("geometric", "learned_hybrid"))}
+    say("evalsuite", device=res["meta"]["device"], renders_against_plain=renders,
+        render_gate="mask equal on >= 0.999 of pixels (shared-edge ties), depth within 2e-3 m",
+        harness={"scenes": list(EVAL_SCENES), "depth": EVAL_DEPTH, "wall_ms": ms,
+                 "launches": counts,
+                 "overall_auc_adds": {m: {k: v.get("overall_auc_adds")
+                                          for k, v in res["modes"][m]["register"].items()}
+                                      for m in res["modes"]}},
+        worst_adds_of_diameter_gated=worst, gate=f"ADD-S <= {ADDS_GATE:.0%} of the diameter on "
+        f"every register trial and tracked frame of {EVAL_GATED}",
+        register_beside_r05=beside, track=track,
+        r05_note="ACCURACY_r05.json: the JAX package on a TPU v5 lite before track gating "
+                 "(559e301); not a gate", card=smi)
+    return counts
+
+
+def _render_scene(torch, raster_cuda, objects, K, hw, backdrop_z, backdrop_rgb=(96, 104, 112)):
+    """Render [(mesh_tensors, pose)] on the card into one frame, z-composited
+    over a flat backdrop. Returns rgb uint8, depth float32 (m), and per object
+    its visible and its full mask."""
+    H, W = hw
+    rgb = np.empty((H, W, 3), np.uint8)
+    rgb[:] = backdrop_rgb
+    zbuf = np.full((H, W), np.float32(backdrop_z))
+    full = []
+    for mt, pose in objects:
+        out = raster_cuda.render_full_frame(mt, torch.tensor(np.asarray(pose, np.float32)[None]),
+                                            K, hw)
+        d = out["depth"][0].cpu().numpy()
+        m = out["mask"][0].cpu().numpy() & (d > 0)
+        full.append((m, d))
+        win = m & (d < zbuf)
+        rgb[win] = (out["rgb"][0].cpu().numpy()[win] * 255).astype(np.uint8)
+        zbuf[win] = d[win]
+    visible = [m & (d <= zbuf) for m, d in full]
+    return rgb, zbuf, [(v, m) for v, (m, _) in zip(visible, full)]
+
+
+@contextlib.contextmanager
+def without_modules(names):
+    """Make ``import name`` (and its submodules) fail while active."""
+    saved = {k: v for k, v in sys.modules.items() if k.split(".")[0] in names}
+    for k in saved:
+        del sys.modules[k]
+    for n in names:
+        sys.modules[n] = None
+    try:
+        yield
+    finally:
+        for k in [k for k in sys.modules if k.split(".")[0] in names]:
+            del sys.modules[k]
+        sys.modules.update(saved)
+
+
+def run_io_apps(torch, demo, metrics, raster, raster_cuda, smi):
+    """The I/O entry points on trees this script writes at 480x640 with the
+    port's PNG writer and ``save_ply``, rendered on the card: a BOP tree (3
+    frames, 2 instances, ``models_info.json``) through ``eval_bop`` in
+    geometric mode with tracking; a YCBInEOAT tree (6 frames) through
+    ``run_track`` streamed and synchronous; ``run_pose.main`` at its defaults
+    and at ``--debug 3``; ``depth_box_fallback`` then ``register`` with its
+    mask. Runs with cv2 and PIL blocked if either is installed."""
+    import tempfile
+
+    from foundationpose_tpu_torch.apps import eval_bop, run_pose, run_track
+    from foundationpose_tpu_torch.core import geometry as geo, meshio
+    from foundationpose_tpu_torch.detect.pipeline import depth_box_fallback
+    from foundationpose_tpu_torch.evalsuite.scenes import HW_DEFAULT, K_DEFAULT
+    from foundationpose_tpu_torch.io import png
+    from foundationpose_tpu_torch.io.datareader import YcbineoatReader, get_bop_reader
+
+    present = {n: subprocess.run([sys.executable, "-c", f"import {n}"], capture_output=True,
+                                 timeout=120).returncode == 0 for n in ("cv2", "PIL")}
+    K, hw = K_DEFAULT, tuple(HW_DEFAULT)
+    target = demo.make_l_shape()
+    other = meshio.make_box((0.07, 0.05, 0.04))
+    other.vertex_colors = np.tile(np.array([[90, 140, 200]], np.uint8), (8, 1))
+    mt_t = raster.make_mesh_tensors(target, device="cuda")
+    mt_o = raster.make_mesh_tensors(other, device="cuda")
+    gts = [demo.default_gt_pose()]
+    dR = geo.so3_exp_map(np.array([demo.FRAME_DW]))[0].numpy().astype(np.float64)
+    for _ in range(5):
+        p = gts[-1].copy()
+        p[:3, 3] += demo.FRAME_DT
+        p[:3, :3] = dR @ p[:3, :3]
+        gts.append(p)
+    other_pose = np.eye(4)
+    other_pose[:3, :3] = geo.euler_matrix(0.2, 0.5, -0.3)[:3, :3].numpy()
+    other_pose[:3, 3] = [0.13, 0.09, 0.62]
+    diameter = centred_diameter(meshio, target)
+    paths, gate_rows = {}, {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            (without_modules(("cv2", "PIL")) if any(present.values()) else contextlib.nullcontext()):
+        # ---- BOP tree: models in mm, depth png in mm (depth_scale 1)
+        root = os.path.join(tmp, "bop", "ycbv")
+        scene_dir = os.path.join(root, "test", "000048")
+        models = os.path.join(root, "ycbv_models", "models")
+        for sub in ("rgb", "depth", "mask_visib", "mask"):
+            os.makedirs(os.path.join(scene_dir, sub))
+        os.makedirs(models)
+        info = {}
+        for ob_id, mesh in ((1, target), (2, other)):
+            mm = meshio.Mesh(mesh.vertices * 1000.0, mesh.faces, vertex_colors=mesh.vertex_colors)
+            meshio.save_ply(os.path.join(models, f"obj_{ob_id:06d}.ply"), mm)
+            info[str(ob_id)] = {"diameter": centred_diameter(meshio, mm)}
+        for ob_id in range(3, 22):  # the reader reads an entry for every YCB-V id
+            info[str(ob_id)] = info["1"]
+        with open(os.path.join(models, "models_info.json"), "w") as f:
+            json.dump(info, f)
+        cam, scene_gt = {}, {}
+        for i in range(3):
+            rgb, depth, masks = _render_scene(torch, raster_cuda,
+                                              [(mt_t, gts[i]), (mt_o, other_pose)], K, hw, 0.75)
+            png.write_png(os.path.join(scene_dir, "rgb", f"{i:06d}.png"), rgb)
+            png.write_png(os.path.join(scene_dir, "depth", f"{i:06d}.png"),
+                          np.rint(depth * 1000).astype(np.uint16))
+            for k, (vis, full) in enumerate(masks):
+                png.write_png(os.path.join(scene_dir, "mask_visib", f"{i:06d}_{k:06d}.png"),
+                              vis.astype(np.uint8) * 255)
+                png.write_png(os.path.join(scene_dir, "mask", f"{i:06d}_{k:06d}.png"),
+                              full.astype(np.uint8) * 255)
+            cam[str(i)] = {"cam_K": K.reshape(-1).tolist(), "depth_scale": 1.0}
+            scene_gt[str(i)] = [{"obj_id": ob, "cam_R_m2c": p[:3, :3].reshape(-1).tolist(),
+                                 "cam_t_m2c": (p[:3, 3] * 1000).tolist()}
+                                for ob, p in ((1, gts[i]), (2, other_pose))]
+        for name, obj in (("scene_camera.json", cam), ("scene_gt.json", scene_gt)):
+            with open(os.path.join(scene_dir, name), "w") as f:
+                json.dump(obj, f)
+        # ---- YCBInEOAT tree: one object over a backdrop at 2 m
+        video = os.path.join(tmp, "bleach0")
+        for sub in ("rgb", "depth", "masks", "annotated_poses"):
+            os.makedirs(os.path.join(video, sub))
+        np.savetxt(os.path.join(video, "cam_K.txt"), K)
+        for i, gt in enumerate(gts):
+            rgb, depth, [(vis, _)] = _render_scene(torch, raster_cuda, [(mt_t, gt)], K, hw, 2.0)
+            png.write_png(os.path.join(video, "rgb", f"{i:04d}.png"), rgb)
+            png.write_png(os.path.join(video, "depth", f"{i:04d}.png"),
+                          np.rint(depth * 1000).astype(np.uint16))
+            png.write_png(os.path.join(video, "masks", f"{i:04d}.png"), vis.astype(np.uint8) * 255)
+            np.savetxt(os.path.join(video, "annotated_poses", f"{i:04d}.txt"), gt)
+        meshio.save_ply(os.path.join(video, "mesh.ply"), target)
+        with open(os.path.join(video, "cam.conf"), "w") as f:  # ZED conf format
+            f.write(f"[LEFT_CAM_FHD1200]\nfx={K[0, 0]}\nfy={K[1, 1]}\n"
+                    f"cx={K[0, 2]}\ncy={K[1, 2]}\n")
+
+        # ---- eval_bop: register frame 0, track frames 1-2 (10 + 8 ICP, 3 per frame)
+        summary, ms, counts = drive_counted(
+            raster_cuda, torch, lambda: eval_bop.evaluate_scene(
+                get_bop_reader(scene_dir), 1, mode="geometric", track=True, device="cuda"),
+            20 + 3 * 2, "eval_bop.evaluate_scene (geometric, track)")
+        paths["eval_bop.evaluate_scene geometric + track"] = counts
+        if summary["n_frames"] != 3:
+            fail(f"eval_bop scored {summary['n_frames']} of 3 frames")
+        gate_rows["eval_bop"] = {"ms": ms, "launches": counts,
+                                 "adds_mm": [fr["adds"] * 1000 for fr in summary["frames"]],
+                                 "adds_auc": summary["adds_auc"]}
+        for fr in summary["frames"]:
+            if fr["adds"] > ADDS_GATE * diameter:
+                FAILURES.append(f"eval_bop frame {fr['frame']}: ADD-S {fr['adds'] * 1000:.2f} mm")
+
+        # ---- run_track, streamed and synchronous (10 + 8 ICP; 4 + 1 per frame)
+        out = {}
+        for stream in (True, False):
+            (res, summ), ms, counts = drive_counted(
+                raster_cuda, torch, lambda: run_track.track_video(
+                    YcbineoatReader(video), mesh=target, mode="geometric", stream=stream,
+                    device="cuda"),
+                20 + 5 * 5, f"run_track.track_video stream={stream}")
+            paths[f"run_track.track_video stream={stream}"] = counts
+            out[stream] = res
+            gate_rows[f"run_track stream={stream}"] = {
+                "ms": ms, "launches": counts, "adds_mm": [r["adds"] * 1000 for r in res],
+                "ate_rmse_m": summ["ate_rmse"], "track_fps": summ["track_fps"]}
+            for r in res:
+                if r["adds"] > ADDS_GATE * diameter:
+                    FAILURES.append(f"run_track stream={stream} frame {r['i']}: ADD-S "
+                                    f"{r['adds'] * 1000:.2f} mm")
+        diff = max(float(np.abs(np.asarray(a["pose"]) - b["pose"]).max())
+                   for a, b in zip(out[True], out[False]))
+        gate_rows["run_track streamed vs sync max abs diff"] = diff
+        if diff > 1e-6:
+            FAILURES.append(f"run_track: streamed poses differ from synchronous ones by {diff:.3g}")
+
+        # ---- run_pose: defaults (geometric, --debug 1), then --debug 3
+        base = ["--rgb", os.path.join(video, "rgb", "0000.png"),
+                "--depth", os.path.join(video, "depth", "0000.png"),
+                "--intrinsics", os.path.join(video, "cam.conf"),
+                "--mesh", os.path.join(video, "mesh.ply"),
+                "--mask", os.path.join(video, "masks", "0000.png")]
+        canvas = (5 * S + 4 * 5, 2 * S + 2, 3)
+        for debug, n, files in (
+                (None, 20, {"vis.png": hw + (3,), "vis_register.png": hw + (3,)}),
+                (3, 20 + 1 + 2 * 10, {"vis.png": hw + (3,), "vis_register.png": hw + (3,),
+                                      "vis_score_top.png": canvas,
+                                      **{f"vis_refine_iter_{i:02d}.png": canvas
+                                         for i in range(10)}})):
+            d = os.path.join(tmp, f"pose_out_debug{debug or 1}")
+            argv = base + ["--out-dir", d] + ([] if debug is None else ["--debug", str(debug)])
+            pose, ms, counts = drive_counted(raster_cuda, torch, lambda: run_pose.main(argv), n,
+                                             f"run_pose.main --debug {debug or 1}")
+            paths[f"run_pose.main --debug {debug or 1}"] = counts
+            err = check_pose(f"run_pose --debug {debug or 1}", pose, gts[0], target, diameter,
+                             metrics)
+            shapes = {}
+            for fname, shape in files.items():
+                path = os.path.join(d, fname)
+                if not os.path.exists(path):
+                    fail(f"run_pose --debug {debug or 1}: {fname} was not written")
+                shapes[fname] = list(png.read_png(path).shape)
+                if tuple(shapes[fname]) != shape:
+                    fail(f"run_pose: {fname} decodes to {shapes[fname]}, expected {list(shape)}")
+            gate_rows[f"run_pose --debug {debug or 1}"] = {"ms": ms, "launches": counts, **err,
+                                                           "pngs": shapes}
+
+        # ---- the depth-only auto-mask, then register with it
+        reader = YcbineoatReader(video)
+        depth1, rgb1 = reader.get_depth(1), reader.get_color(1)
+        mask = depth_box_fallback(depth1)
+        true = reader.get_mask(1) > 0
+        iou = float((mask.astype(bool) & true).sum() / max((mask.astype(bool) | true).sum(), 1))
+        est = demo.build_estimator(target, device="cuda", mode="geometric")
+        pose, ms, counts = drive_counted(
+            raster_cuda, torch, lambda: est.register(reader.K, rgb1, depth1, mask), 20,
+            "depth_box_fallback mask -> geometric register")
+        paths["depth_box_fallback + register"] = counts
+        gate_rows["depth_box_fallback"] = {"iou_with_true_mask": iou, "ms": ms, "launches": counts,
+                                           **check_pose("depth_box_fallback register", pose,
+                                                        gts[1], target, diameter, metrics)}
+        if iou < 0.9:
+            FAILURES.append(f"depth_box_fallback: IoU {iou:.3f} with the true mask")
+    say("io_apps", importable_on_this_machine=present,
+        ran_with_cv2_and_pil_blocked=any(present.values()), frames_hw=list(hw),
+        diameter_mm=diameter * 1000, results=gate_rows,
+        gate=f"ADD-S <= {ADDS_GATE:.0%} of the diameter on every frame and pose; streamed = "
+             "synchronous within 1e-6; every debug PNG written and of its shape", card=smi)
+    total = {}
+    for counts in paths.values():
+        add_counts(total, counts)
+    return total, paths
+
+
 def main():
     import torch
 
@@ -1008,6 +1424,8 @@ def main():
 
     scene = demo.make_scene((480, 640), device="cuda")
     k1 = check_kernels(scene, torch)
+    suite_k = check_suite_kernels(torch, raster, raster_cuda)
+    say("kernels", suite_full_frames=suite_k, gate=COMPARE_GATE + "; K1s: " + SETUP_GATE)
 
     # ---- main path: register, then track, launches counted from zero
     est = demo.build_estimator(scene["mesh"], device="cuda")
@@ -1092,6 +1510,10 @@ def main():
         torch, demo, metrics, raster, raster_cuda, scene, smi)
     by_path["streaming track_one(sync=False)"] = run_streaming(
         torch, metrics, raster_cuda, est, reg_chain, scene, frames_in, smi)
+    by_path["evalsuite harness, 4 scenes x (geometric + learned_hybrid)"] = run_evalsuite(
+        torch, metrics, raster, raster_cuda, smi)
+    _, io_paths = run_io_apps(torch, demo, metrics, raster, raster_cuda, smi)
+    by_path.update(io_paths)
     all_launches = {}
     for counts in by_path.values():
         add_counts(all_launches, counts)
@@ -1116,7 +1538,9 @@ def main():
         "launches": all_launches["K1s"],
         "launches_by_path": {k: v["K1s"] for k, v in by_path.items()},
         "launches_per_call": {k: v["K1s"] for k, v in PER_CALL.items()},
-        "max_abs_err": k1["setup_worst"]["vtab_max_abs_err"], "worst": k1["setup_worst"],
+        "max_abs_err": max(k1["setup_worst"]["vtab_max_abs_err"],
+                           suite_k["setup_worst"]["vtab_max_abs_err"]),
+        "worst": k1["setup_worst"], "worst_suite_full_frames": suite_k["setup_worst"],
         "tolerance": SETUP_GATE,
         "ms": main_row["K1s_ms"], "device_ms": main_row["K1s_device_ms"],
         "plain_ms": main_row["K1s_plain_ms"],
@@ -1129,7 +1553,10 @@ def main():
         "launches": all_launches["K1r"],
         "launches_by_path": {k: v["K1r"] for k, v in by_path.items()},
         "launches_per_call": {k: v["K1r"] for k, v in PER_CALL.items()},
-        "max_abs_err": max(k1["worst_abs_err"].values()), "worst_abs_err": k1["worst_abs_err"],
+        "max_abs_err": max(*k1["worst_abs_err"].values(), *suite_k["worst_abs_err"].values()),
+        "worst_abs_err": k1["worst_abs_err"],
+        "worst_abs_err_suite_full_frames": suite_k["worst_abs_err"],
+        "max_winner_flips_suite_full_frames": suite_k["max_winner_flips_of_common"],
         "worst_abs_err_incl_winner_flips": k1["worst_abs_err_incl_winner_flips"],
         "max_winner_flips_of_common": k1["max_winner_flips_of_common"],
         "tolerance": COMPARE_GATE,
@@ -1138,7 +1565,12 @@ def main():
         "bound_ms": main_row["K1r_bound"]["bound_ms"],
         "bound_by": main_row["K1r_bound"]["bound_by"],
         "call_ms": main_row["ms"], "call_bound_ms": main_row["bound_ms"],
-        "call_bound_by": main_row["bound_by"], "by_face_bucket": by_bucket, **common,
+        "call_bound_by": main_row["bound_by"], "by_face_bucket": by_bucket,
+        "full_frame_480x640_by_bucket": [
+            {k: c[k] for k in ("case", "shape", "ms", "K1s_ms", "K1r_ms", "K1s_device_ms",
+                               "K1r_device_ms", "plain_ms", "bound_ms", "bound_by")}
+            | {"K1s_bound_ms": c["K1s_bound"]["bound_ms"], "K1r_bound_ms": c["K1r_bound"]["bound_ms"]}
+            for c in suite_k["times_full_frame"]], **common,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,28 @@
 """Single-frame 6D pose estimation CLI.
 
-Counterpart of foundationpose_tpu/apps/run_pose.py: load RGB + depth +
-intrinsics + mesh + mask, run registration, save the pose. ``--mode learned``
-uses the shipped ``weights/agnostic`` checkpoint and the hybrid scorer;
-``--mode geometric`` needs no weights (projective ICP + geometric score, twice
-the refine iterations and an 8-iteration polish). ``--weights`` checkpoint
-import, interactive / prompted masks, visualisation and NetworkTables
-publishing belong to later slices of the port; ``--weights`` is refused here.
+Counterpart of foundationpose_tpu/apps/run_pose.py (reference main.py, call
+stack SURVEY.md 3.1), option for option and with the same defaults, plus
+``--device``: load RGB + depth + intrinsics (3x3 or ZED conf) + mesh, obtain
+the object mask (a file, ``--manual-mask`` painted interactively, or
+``--prompt`` through the detector + segmenter), register, save the pose and,
+at ``--debug >= 1``, ``vis.png``; convert the pose to 6D robot coordinates and
+publish it to NetworkTables when asked.
+
+``--mode geometric`` (the default) needs no weights: projective ICP +
+geometric score, twice the refine iterations and an 8-iteration polish.
+``--mode learned`` uses the shipped object-agnostic checkpoint
+(``weights/agnostic``) with the hybrid scorer, or the torch checkpoint given
+by ``--weights`` (``refiner.pth`` / ``scorer.pth``).
+
+One difference from the JAX CLI: ``--debug`` also reaches the engine, which
+writes its own dumps into ``--out-dir`` (``vis_register.png``; at 2 the
+render | observed canvas of the top hypotheses; at 3 one canvas per refine
+iteration).
 
 Usage:
   python -m foundationpose_tpu_torch.apps.run_pose --rgb rgb.png \\
-      --depth depth.npy --intrinsics cam_K.txt --mesh object.obj \\
-      --mask mask.png [--mode geometric] [--device cpu]
+      --depth depth.png --intrinsics cam_K.txt --mesh object.obj \\
+      --mask mask.png [--mode learned] [--debug 3] [--device cpu]
 """
 
 from __future__ import annotations
@@ -26,60 +37,121 @@ import numpy as np
 def build_parser():
     p = argparse.ArgumentParser(description="FoundationPose (PyTorch port): single-frame registration")
     p.add_argument("--rgb", required=True, help="path to rgb image (png/jpg)")
-    p.add_argument("--depth", required=True, help="depth: .npy in metres or 16-bit png in millimetres")
-    p.add_argument("--intrinsics", required=True, help="cam_K.txt (3x3)")
+    p.add_argument("--depth", required=True, help="path to depth (npy meters or png mm)")
+    p.add_argument("--intrinsics", required=True, help="cam_K.txt (3x3 or ZED conf format)")
     p.add_argument("--mesh", required=True, help="object mesh (.obj/.ply)")
-    p.add_argument("--mask", required=True, help="object mask image (non-zero = object)")
+    p.add_argument("--mask", default=None, help="object mask file; omit for --manual-mask or --prompt")
+    p.add_argument("--manual-mask", action="store_true", help="paint the mask interactively")
+    p.add_argument("--prompt", default=None, help="text prompt for detector+segmenter auto-masking")
     p.add_argument("--est-refine-iter", type=int, default=5)
-    p.add_argument("--mode", choices=["learned", "geometric"], default="learned")
+    p.add_argument("--mode", choices=["learned", "geometric"], default="geometric",
+                   help="refiner/scorer backend; 'learned' uses weights/agnostic or --weights")
     p.add_argument("--weights", default=None,
-                   help="torch-checkpoint import (not ported yet)")
-    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+                   help="directory with refiner.pth / scorer.pth (torch checkpoint import)")
     p.add_argument("--out-dir", default="./pose_out")
+    p.add_argument("--debug", type=int, default=1)
+    p.add_argument("--nt-server", default=None, help="publish pose to this NetworkTables server")
+    p.add_argument("--to-inches", action="store_true", default=True)
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p
 
 
-def load_inputs(args):
-    from PIL import Image
+def get_mask(args, rgb, depth):
+    """The object mask from a file, the interactive painter or a prompt."""
+    if args.mask:
+        from foundationpose_tpu_torch.io.masking import load_mask
 
-    rgb = np.asarray(Image.open(args.rgb).convert("RGB"))
-    if args.depth.endswith(".npy"):
-        depth = np.load(args.depth).astype(np.float32)
+        return load_mask(args.mask, shape=depth.shape)
+    if args.manual_mask:
+        from foundationpose_tpu_torch.io.masking import MaskingTool
+
+        mask = MaskingTool().run(rgb, os.path.join(args.out_dir, "mask.png"))
+        if mask is None:
+            raise SystemExit("masking aborted")
+        return mask
+    if args.prompt:
+        from foundationpose_tpu_torch.detect.pipeline import AutoMasker
+
+        return AutoMasker(device=args.device).mask_from_prompt(rgb, args.prompt)
+    raise SystemExit("provide --mask, --manual-mask, or --prompt")
+
+
+def build_engine(args, mesh, device):
+    """The estimator of ``--mode``: geometric, or learned with the agnostic
+    checkpoint + hybrid scorer unless ``--weights`` names a torch checkpoint."""
+    from foundationpose_tpu_torch.apps.demo_synthetic import default_weights_dir
+    from foundationpose_tpu_torch.engine.estimator import EstimatorConfig, FoundationPoseTorch
+
+    debug = dict(debug=args.debug, debug_dir=args.out_dir)
+    refiner = scorer = None
+    if args.mode == "geometric":
+        from foundationpose_tpu_torch.engine.geometric import (
+            GeometricConfig, GeometricRefiner, GeometricScorer,
+        )
+
+        refiner = GeometricRefiner(GeometricConfig(), device)
+        scorer = GeometricScorer(GeometricConfig(), device)
+        cfg = EstimatorConfig(register_iterations=args.est_refine_iter * 2,
+                              final_refine_iterations=8, **debug)
     else:
-        depth = np.asarray(Image.open(args.depth)).astype(np.float32) / 1000.0
-    K = np.loadtxt(args.intrinsics).reshape(3, 3)
-    mask = np.asarray(Image.open(args.mask))
-    if mask.ndim == 3:
-        mask = mask[..., 0]
-    return rgb, depth, K, mask > 0
+        cfg = EstimatorConfig(register_iterations=args.est_refine_iter, **debug)
+        agn_dir = default_weights_dir()
+        if args.weights is None and os.path.isdir(agn_dir):
+            from foundationpose_tpu_torch.engine.scorer import HybridScorer
+            from foundationpose_tpu_torch.models.agnostic import load_agnostic
+
+            refiner, learned_scorer, _ = load_agnostic(agn_dir, device=device)
+            scorer = HybridScorer(learned_scorer)
+            logging.info("learned mode: agnostic checkpoint %s + hybrid scorer", agn_dir)
+    est = FoundationPoseTorch(mesh, config=cfg, refiner=refiner, scorer=scorer, device=device)
+    if args.weights and args.mode == "learned":
+        from foundationpose_tpu_torch.models.weights import load_engine_params
+
+        load_engine_params(est, args.weights)
+    return est
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="[%(funcName)s()] %(message)s")
-    if args.weights is not None:
-        raise NotImplementedError(
-            "--weights torch-checkpoint import comes with the training-stack "
-            "slice of the port; the shipped weights/agnostic checkpoint is used"
-        )
-
-    from foundationpose_tpu_torch.apps.demo_synthetic import build_estimator
-    from foundationpose_tpu_torch.core import meshio
-    from foundationpose_tpu_torch.engine.estimator import EstimatorConfig
-
     os.makedirs(args.out_dir, exist_ok=True)
-    rgb, depth, K, mask = load_inputs(args)
+    logging.basicConfig(level=logging.INFO, format="[%(funcName)s()] %(message)s")
+
+    from foundationpose_tpu_torch import resolve_device
+    from foundationpose_tpu_torch.core import meshio
+    from foundationpose_tpu_torch.io import png
+    from foundationpose_tpu_torch.io.file_loader import FileLoader
+    from foundationpose_tpu_torch.io.pose6d import PoseTransformer
+
+    loader = FileLoader()
+    rgb = loader.load_rgb_image_from_file(args.rgb)
+    depth = loader.load_depth_from_file(args.depth)
+    K = loader.load_camera_intrinsics(args.intrinsics)
+    if rgb is None or depth is None or K is None:
+        raise SystemExit("failed to load inputs")
     mesh = meshio.load_mesh(args.mesh)
-    if args.mode == "geometric":
-        cfg = EstimatorConfig(register_iterations=args.est_refine_iter * 2,
-                              final_refine_iterations=8)
-    else:
-        cfg = EstimatorConfig(register_iterations=args.est_refine_iter)
-    est = build_estimator(mesh, device=args.device, config=cfg, mode=args.mode)
-    # None: the configured register_iterations (twice --est-refine-iter in geometric mode)
-    pose = est.register(K, rgb.astype(np.float32), depth, mask, iteration=None)
+    mask = get_mask(args, rgb, depth)
+
+    est = build_engine(args, mesh, resolve_device(args.device))
+    pose = est.register(K, rgb.astype(np.float32), depth, mask,
+                        iteration=None if args.mode == "geometric" else args.est_refine_iter)
     np.savetxt(os.path.join(args.out_dir, "pose.txt"), pose)
     logging.info("pose:\n%s", pose)
+
+    # center_pose = pose of the centred mesh (reference main.py:67)
+    center_pose = pose @ np.linalg.inv(est.get_tf_to_centered_mesh())
+    if args.debug >= 1:
+        from foundationpose_tpu_torch.utils.vis import draw_posed_3d_box, draw_xyz_axis
+
+        vis = draw_posed_3d_box(K, rgb, center_pose, est.mesh.bounds)
+        vis = draw_xyz_axis(vis, center_pose, scale=0.1, K=K)
+        png.write_png(os.path.join(args.out_dir, "vis.png"), vis)
+        logging.info("visualization saved to %s/vis.png", args.out_dir)
+
+    pose_6d = PoseTransformer(to_inches=args.to_inches).transform_pose(center_pose)
+    if args.nt_server:
+        from foundationpose_tpu_torch.io.nt import PosePublisher
+
+        PosePublisher(server=args.nt_server).publish_pose(pose_6d)
     return pose
 
 

@@ -7,10 +7,11 @@ Replaces the reference's trimesh dependency (mesh loading at main.py:126, mesh
 tensors at src/Utils.py:104-130, diameter at src/Utils.py:559-574, voxel
 downsampling at src/estimater.py:60) with a small self-contained
 implementation: OBJ (+MTL texture) and PLY (ascii / binary_little_endian,
-BOP-style per-vertex texture coords) readers, vertex normals, the SVD
-diameter, and vertex-clustering decimation used to bound triangle counts for
-the rasterizer. (Writers and voxel downsampling are not needed by the ported
-path yet.)
+BOP-style per-vertex texture coords) readers and writers, vertex normals,
+the SVD diameter, and vertex-clustering decimation used to bound triangle
+counts for the rasterizer. Textures are read and written through the port's
+PNG codec (``io/png.py``); other image formats need PIL. (Voxel downsampling
+is not needed by the ported paths yet.)
 """
 
 from __future__ import annotations
@@ -240,10 +241,38 @@ def _load_mtl_texture(mtl_path):
             if parts and parts[0] == "map_Kd" and len(parts) > 1:
                 img_path = os.path.join(base, parts[-1])
                 if os.path.exists(img_path):
-                    from PIL import Image
+                    from foundationpose_tpu_torch.io.datareader import _imread_rgb
 
-                    return np.asarray(Image.open(img_path).convert("RGB"))
+                    return _imread_rgb(img_path)
     return None
+
+
+def save_obj(path, mesh: Mesh):
+    with open(path, "w") as f:
+        if mesh.texture is not None and mesh.uv is not None:
+            mtl = os.path.splitext(os.path.basename(path))[0]
+            f.write(f"mtllib {mtl}.mtl\n")
+        for i, v in enumerate(mesh.vertices):
+            if mesh.vertex_colors is not None:
+                c = mesh.vertex_colors[i] / 255.0
+                f.write(f"v {v[0]} {v[1]} {v[2]} {c[0]} {c[1]} {c[2]}\n")
+            else:
+                f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+        if mesh.uv is not None:
+            for t in mesh.uv:
+                f.write(f"vt {t[0]} {t[1]}\n")
+        for face in mesh.faces:
+            if mesh.uv is not None:
+                f.write("f " + " ".join(f"{i + 1}/{i + 1}" for i in face) + "\n")
+            else:
+                f.write("f " + " ".join(str(i + 1) for i in face) + "\n")
+    if mesh.texture is not None and mesh.uv is not None:
+        from foundationpose_tpu_torch.io import png
+
+        base, _ = os.path.splitext(path)
+        png.write_png(base + ".png", np.asarray(mesh.texture, np.uint8))
+        with open(base + ".mtl", "w") as f:
+            f.write(f"newmtl material_0\nKd 1 1 1\nmap_Kd {os.path.basename(base)}.png\n")
 
 
 # ---------------------------------------------------------------------------
@@ -371,14 +400,34 @@ def load_ply(path):
     if texture_file is not None:
         img_path = os.path.join(os.path.dirname(os.path.abspath(path)), texture_file)
         if os.path.exists(img_path):
-            from PIL import Image
+            from foundationpose_tpu_torch.io.datareader import _imread_rgb
 
-            texture = np.asarray(Image.open(img_path).convert("RGB"))
+            texture = _imread_rgb(img_path)
     return Mesh(xyz, faces, normals, uv, texture, colors)
 
 
 def _np_code(ply_type):
     return {"b": "i1", "B": "u1", "h": "i2", "H": "u2", "i": "i4", "I": "u4", "f": "f4", "d": "f8"}[_PLY_TYPES[ply_type][0]]
+
+
+def save_ply(path, mesh: Mesh):
+    """ASCII PLY: positions, optional vertex colours, triangles."""
+    with open(path, "wb") as f:
+        lines = ["ply", "format ascii 1.0", f"element vertex {len(mesh.vertices)}"]
+        lines += ["property float x", "property float y", "property float z"]
+        if mesh.vertex_colors is not None:
+            lines += ["property uchar red", "property uchar green", "property uchar blue"]
+        lines += [f"element face {len(mesh.faces)}",
+                  "property list uchar int vertex_indices", "end_header"]
+        f.write(("\n".join(lines) + "\n").encode())
+        for i, v in enumerate(mesh.vertices):
+            row = f"{v[0]} {v[1]} {v[2]}"
+            if mesh.vertex_colors is not None:
+                c = mesh.vertex_colors[i]
+                row += f" {int(c[0])} {int(c[1])} {int(c[2])}"
+            f.write((row + "\n").encode())
+        for face in mesh.faces:
+            f.write(f"3 {face[0]} {face[1]} {face[2]}\n".encode())
 
 
 def load_mesh(path):

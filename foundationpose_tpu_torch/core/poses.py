@@ -1,7 +1,8 @@
 """Pose-hypothesis grid construction and pose clustering (host-side numpy).
 
 The port's own copy of foundationpose_tpu/core/poses.py (``euler_matrix_np``,
-``rotation_geodesic_distance_np``, ``cluster_poses``, ``make_rotation_grid``).
+``symmetry_tfs_from_info``, ``rotation_geodesic_distance_np``,
+``cluster_poses``, ``make_rotation_grid``).
 ``cluster_poses`` is the numpy greedy pass: it runs once per object on a few
 hundred poses.
 """
@@ -27,6 +28,35 @@ def euler_matrix_np(ai, aj, ak):
     T = np.eye(4)
     T[:3, :3] = R
     return T
+
+
+def symmetry_tfs_from_info(info, rot_angle_discrete=5):
+    """BOP models_info.json symmetry entry -> (S,4,4) transforms (discrete
+    translations mm -> m; a continuous axis sampled every
+    ``rot_angle_discrete`` degrees)."""
+    symmetry_tfs = [np.eye(4)]
+    if "symmetries_discrete" in info:
+        tfs = np.array(info["symmetries_discrete"], dtype=np.float64).reshape(-1, 4, 4)
+        tfs[..., :3, 3] *= 0.001
+        symmetry_tfs = [np.eye(4)] + list(tfs)
+    if "symmetries_continuous" in info:
+        axis = np.array(info["symmetries_continuous"][0]["axis"]).reshape(3)
+        offset = info["symmetries_continuous"][0]["offset"]
+        rxs, rys, rzs = [0.0], [0.0], [0.0]
+        angles = np.arange(0, 360, rot_angle_discrete) / 180.0 * np.pi
+        if axis[0] > 0:
+            rxs = angles
+        elif axis[1] > 0:
+            rys = angles
+        elif axis[2] > 0:
+            rzs = angles
+        for rx in rxs:
+            for ry in rys:
+                for rz in rzs:
+                    tf = euler_matrix_np(rx, ry, rz)
+                    tf[:3, 3] = offset
+                    symmetry_tfs.append(tf)
+    return np.asarray(symmetry_tfs)
 
 
 def rotation_geodesic_distance_np(R1, R2):

@@ -35,6 +35,8 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
+import tempfile
 
 import numpy as np
 import torch
@@ -45,7 +47,7 @@ from foundationpose_tpu_torch.core import meshio, poses as poses_mod, validate
 from foundationpose_tpu_torch.engine.refiner import PoseRefiner, RefinerConfig
 from foundationpose_tpu_torch.engine.scorer import PoseScorer, ScorerConfig
 from foundationpose_tpu_torch.ops import image as imops
-from foundationpose_tpu_torch.ops import raster
+from foundationpose_tpu_torch.ops import raster, raster_cuda
 
 HYP_BUCKET = 32  # register pads the hypothesis axis to a multiple of this
 
@@ -153,21 +155,21 @@ class EstimatorConfig:
     # face budget of the coarse pass: it renders a vertex-clustering-decimated
     # copy of the mesh. 0 = the full render mesh.
     funnel_coarse_faces: int = 0
-    # debug artifact dumps: not ported yet
+    # debug artifact dumps (PNG, into debug_dir): 1 = posed box + axes of the
+    # registered pose, 2 = + render | observed canvas of the top hypotheses,
+    # 3 = + one canvas per refine iteration of their replayed refinement
     debug: int = 0
+    debug_dir: str = dataclasses.field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(), "foundationpose_debug"))
     refiner: RefinerConfig = dataclasses.field(default_factory=RefinerConfig)
     scorer: ScorerConfig = dataclasses.field(default_factory=ScorerConfig)
 
 
-def _check_supported(cfg: EstimatorConfig, device_mesh):
-    later = []
+def _check_supported(device_mesh):
     if device_mesh is not None:
-        later.append("device_mesh (hypothesis-axis sharding) comes with the "
-                     "multi-device slice")
-    if cfg.debug >= 1:
-        later.append("debug >= 1 dumps come with the debug/io slice")
-    if later:
-        raise NotImplementedError("not in this slice of the port: " + "; ".join(later))
+        raise NotImplementedError(
+            "not in this slice of the port: device_mesh (hypothesis-axis sharding) "
+            "comes with the multi-device slice")
 
 
 class FoundationPoseTorch:
@@ -186,7 +188,7 @@ class FoundationPoseTorch:
                  refiner: PoseRefiner | None = None, scorer=None,
                  device=None, device_mesh=None):
         self.cfg = config or EstimatorConfig()
-        _check_supported(self.cfg, device_mesh)
+        _check_supported(device_mesh)
         self.device = resolve_device(device)
         self.refiner = refiner or PoseRefiner(self.cfg.refiner, device=self.device)
         self.scorer = scorer or PoseScorer(self.cfg.scorer, device=self.device)
@@ -384,8 +386,74 @@ class FoundationPoseTorch:
         self.poses = refined[order].cpu().numpy().astype(np.float64)
         self.scores = scores[order].cpu().numpy()
         self.hyp_order = order.cpu().numpy()  # ranked slot -> rotation-grid index
+        self._last_center = center.cpu().numpy()
+        self._last_iteration = iteration
         self.pose_last = self.poses[0]
-        return self.poses[0] @ self.get_tf_to_centered_mesh()
+        best = self.poses[0] @ self.get_tf_to_centered_mesh()
+        if cfg.debug >= 1:
+            self._dump_register_debug(K, rgb, depth, best)
+        return best
+
+    # ------------------------------------------------------------------
+    def _render_observe_strip(self, K, rgb, poses, size=160):
+        """[render | observed] comparison canvas for a set of (centred-mesh)
+        poses: the rendered crops (K1s + K1r on the card) beside the observed
+        frame warped into the same windows."""
+        from foundationpose_tpu_torch.utils import vis as vis_mod
+
+        dev = self.device
+        poses_t = _upload(np.asarray(poses), dev, torch.float32)
+        K_t = _upload(K, dev, torch.float32)
+        tfs = geo.compute_crop_window_tf_batch(
+            poses_t, K_t, self.refiner.cfg.crop_ratio, float(self.diameter), (size, size))
+        out = raster_cuda.render_crops(
+            self.mesh_tensors, poses_t, K_t, tfs, out_hw=(size, size),
+            backface_cull=self.refiner.cfg.backface_cull, with_normal=False)
+        observed = imops.warp_crop_affine(
+            _upload(np.asarray(rgb), dev, torch.float32), tfs, (size, size)) / 255.0
+        return vis_mod.make_comparison_strip(out["rgb"].cpu().numpy(),
+                                             observed.cpu().numpy())
+
+    def _dump_register_debug(self, K, rgb, depth, best_pose):
+        """Debug artifacts by level (reference estimater.py:176-221,
+        predict_score.py:27-52): level >= 1 saves the posed box / axis
+        overlay; >= 2 adds a render | observed canvas of the top-scoring
+        hypotheses; >= 3 replays the top hypotheses' refinement from their
+        grid rotations and dumps one canvas per iteration
+        (predict_pose_refine.py:241-293)."""
+        from foundationpose_tpu_torch.utils import vis as vis_mod
+
+        out_dir = self.cfg.debug_dir
+        os.makedirs(out_dir, exist_ok=True)
+        img = vis_mod.draw_posed_3d_box(K, self._as_u8(rgb), best_pose, self.mesh_ori.bounds)
+        img = vis_mod.draw_xyz_axis(img, best_pose, scale=float(self.diameter) / 2, K=K)
+        self._imwrite(os.path.join(out_dir, "vis_register.png"), img)
+        k = min(5, len(self.poses))
+        if self.cfg.debug >= 2:
+            canvas = self._render_observe_strip(K, rgb, self.poses[:k])
+            self._imwrite(os.path.join(out_dir, "vis_score_top.png"), canvas)
+        if self.cfg.debug >= 3:
+            dev = self.device
+            K_t = _upload(K, dev, torch.float32)
+            rgb_t = _upload(np.asarray(rgb), dev, torch.float32)
+            _, xyz_map = preprocess_depth(_upload(np.asarray(depth, np.float32), dev), K_t)
+            hyp = self.rot_grid[self.hyp_order[:k]].copy()
+            hyp[:, :3, 3] = self._last_center[None]
+            poses_it = _upload(hyp, dev, torch.float32)
+            for it in range(self._last_iteration):
+                poses_it = self.refiner.refine(self.mesh_tensors, rgb_t, xyz_map, K_t,
+                                               poses_it, float(self.diameter), 1)
+                canvas = self._render_observe_strip(K, rgb, poses_it.cpu().numpy())
+                self._imwrite(os.path.join(out_dir, f"vis_refine_iter_{it:02d}.png"), canvas)
+
+    @staticmethod
+    def _imwrite(path, img):
+        from foundationpose_tpu_torch.io import png
+
+        try:
+            png.write_png(path, np.asarray(img).astype(np.uint8))
+        except (OSError, ValueError) as e:  # debug-only path: never break registration
+            logging.warning("debug imwrite failed: %s", e)
 
     # ------------------------------------------------------------------
     def _crop_pose_hint(self):

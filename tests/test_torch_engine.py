@@ -270,10 +270,10 @@ def test_register_translation_only_fallback(world):
     assert np.allclose(pose[:3, :3], np.eye(3)) and pose[2, 3] > 0
 
 
-def test_device_rule_and_unported_settings(world):
+def test_device_rule_and_unported_settings(world, tmp_path):
     """``device=None`` raises without a card; what is still to be ported
-    (``device_mesh``, debug dumps, ``--weights``) is refused; the funnel
-    settings, ``sync=False`` and ``--mode geometric``, refused by the first
+    (``device_mesh``) is refused; the funnel settings, ``sync=False``,
+    ``--mode geometric``, debug dumps and ``--weights``, refused by the first
     slices of the port, are accepted now."""
     mesh = world["scene"]["mesh"]
     if not torch.cuda.is_available():
@@ -284,8 +284,7 @@ def test_device_rule_and_unported_settings(world):
                 make()
     E = est_mod.EstimatorConfig
     parts = dict(refiner=world["est"].refiner, scorer=world["est"].scorer, device="cpu")
-    with pytest.raises(NotImplementedError):
-        est_mod.FoundationPoseTorch(mesh, config=E(debug=1), **parts)
+    assert est_mod.FoundationPoseTorch(mesh, config=E(debug=3), **parts).cfg.debug == 3
     with pytest.raises(NotImplementedError):
         est_mod.FoundationPoseTorch(mesh, device_mesh=object(), **parts)
     for cfg in (E(funnel_top_k=16), E(funnel_coarse_size=112), E(funnel_coarse_faces=512)):
@@ -295,11 +294,11 @@ def test_device_rule_and_unported_settings(world):
         assert (funnel.mesh_tensors_coarse is funnel.mesh_tensors) == (cfg.funnel_coarse_faces == 0)
     from foundationpose_tpu_torch.apps import run_pose
 
-    base = ["--rgb", "a", "--depth", "b", "--intrinsics", "c", "--mesh", "d", "--mask", "e"]
-    with pytest.raises(NotImplementedError):
-        run_pose.main(base + ["--weights", "w"])
-    with pytest.raises(FileNotFoundError):  # geometric mode is taken; the files are missing
-        run_pose.main(base + ["--mode", "geometric", "--device", "cpu"])
+    base = ["--rgb", "a", "--depth", "b", "--intrinsics", "c", "--mesh", "d", "--mask", "e",
+            "--out-dir", str(tmp_path)]
+    for extra in (["--mode", "learned", "--weights", "w"], ["--mode", "geometric"]):
+        with pytest.raises(SystemExit, match="failed to load inputs"):  # the files are missing
+            run_pose.main(base + extra + ["--device", "cpu"])
     fresh = est_mod.FoundationPoseTorch(
         mesh, config=E(min_n_views=12, inplane_step=120), **parts)
     for sync in (True, False):

@@ -194,34 +194,46 @@ def test_geometric_classes_have_the_port_interface(world):
 
 
 def test_run_pose_geometric_mode_schedule(monkeypatch, tmp_path):
-    """``run_pose --mode geometric`` builds the geometric estimator with twice
-    the refine iterations and an 8-iteration polish and lets ``register`` take
-    its iteration count from the configuration; learned mode keeps its own."""
+    """``run_pose --mode geometric`` (the default, as in the JAX CLI) builds the
+    geometric estimator with twice the refine iterations and an 8-iteration
+    polish and lets ``register`` take its iteration count from the
+    configuration; learned mode keeps its own, with the agnostic checkpoint
+    and the hybrid scorer."""
+    from foundationpose_tpu_torch.core import meshio
+    from foundationpose_tpu_torch.engine.scorer import HybridScorer
+    from foundationpose_tpu_torch.io.file_loader import FileLoader
+
     seen = {}
 
     class Stub:
+        def __init__(self, mesh, config=None, refiner=None, scorer=None, device=None):
+            seen.update(config=config, refiner=refiner, scorer=scorer, device=device)
+
         def register(self, K, rgb, depth, mask, iteration=None):
             seen["iteration"] = iteration
             return np.eye(4)
 
-    def fake_build(mesh, device=None, config=None, mode="learned"):
-        seen.update(config=config, mode=mode, device=device)
-        return Stub()
+        def get_tf_to_centered_mesh(self):
+            return np.eye(4)
 
-    monkeypatch.setattr(demo, "build_estimator", fake_build)
-    monkeypatch.setattr(run_pose, "load_inputs", lambda args: (
-        np.zeros((4, 4, 3), np.uint8), np.ones((4, 4), np.float32), np.eye(3),
-        np.ones((4, 4), bool)))
-    from foundationpose_tpu_torch.core import meshio
-
+    monkeypatch.setattr(est_mod, "FoundationPoseTorch", Stub)
+    monkeypatch.setattr(FileLoader, "load_rgb_image_from_file",
+                        lambda self, p: np.zeros((4, 4, 3), np.uint8))
+    monkeypatch.setattr(FileLoader, "load_depth_from_file",
+                        lambda self, p: np.ones((4, 4), np.float32))
+    monkeypatch.setattr(FileLoader, "load_camera_intrinsics", lambda self, p: np.eye(3))
+    monkeypatch.setattr(run_pose, "get_mask", lambda args, rgb, depth: np.ones((4, 4), bool))
     monkeypatch.setattr(meshio, "load_mesh", lambda path: None)
     base = ["--rgb", "a", "--depth", "b", "--intrinsics", "c", "--mesh", "d", "--mask", "e",
-            "--device", "cpu", "--out-dir", str(tmp_path)]
-    run_pose.main(base + ["--mode", "geometric", "--est-refine-iter", "3"])
-    assert seen["mode"] == "geometric" and seen["iteration"] is None
+            "--device", "cpu", "--out-dir", str(tmp_path), "--debug", "0"]
+    run_pose.main(base + ["--est-refine-iter", "3"])
+    assert isinstance(seen["refiner"], geometric.GeometricRefiner)
+    assert isinstance(seen["scorer"], geometric.GeometricScorer)
+    assert seen["iteration"] is None and seen["device"] == torch.device("cpu")
     assert seen["config"].register_iterations == 6
     assert seen["config"].final_refine_iterations == 8
     np.testing.assert_array_equal(np.loadtxt(tmp_path / "pose.txt"), np.eye(4))
-    run_pose.main(base + ["--est-refine-iter", "3"])
-    assert seen["mode"] == "learned" and seen["config"].register_iterations == 3
+    run_pose.main(base + ["--mode", "learned", "--est-refine-iter", "3"])
+    assert isinstance(seen["scorer"], HybridScorer) and seen["iteration"] == 3
+    assert seen["config"].register_iterations == 3
     assert seen["config"].final_refine_iterations == 2

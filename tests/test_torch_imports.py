@@ -67,6 +67,30 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
 
 
+def test_port_imports_without_cv2_or_pil():
+    """Every module of the port imports with cv2 and PIL blocked: the card's
+    machine has neither, and nothing the port runs there may need them."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['cv2'] = None\n"
+        "sys.modules['PIL'] = None\n"
+        "import foundationpose_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from foundationpose_tpu_torch.io import datareader\n"
+        "try:\n"
+        "    datareader._imread_rgb('x.jpg')\n"
+        "except ImportError as e:\n"
+        "    assert 'PIL' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('a .jpg read without PIL')\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
 def test_chip_smoke_fails_without_a_card():
     """Without a CUDA device the smoke script exits non-zero and prints no
     result line."""
