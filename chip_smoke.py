@@ -23,12 +23,19 @@ bf16 nets from the shipped object-agnostic checkpoint where a net runs):
 - the I/O entry points on trees it writes with the port's PNG writer:
   ``eval_bop`` on a BOP tree, ``run_track`` (streamed and synchronous) on a
   YCBInEOAT tree, ``run_pose`` at its defaults and at ``--debug 3``, and the
-  depth-only auto-mask, with cv2 and PIL blocked where they are installed.
+  depth-only auto-mask, with cv2 and PIL blocked where they are installed;
+- the training stack (160 px, refine batch 32, score batch 16, float32 nets,
+  depth cut to an 8-mesh corpus and 100 + 100 steps): one step of each net
+  held against the same step through the plain rasterizer, both corpus
+  trainers (3 + 3 launches per step, falling losses), a cut run resumed from
+  its snapshot, the saved checkpoint serving a learned-hybrid ``register``,
+  and the harness's per-scene training fallback.
 
 It builds every CUDA kernel of those paths (K1s: face setup and tile binning,
 K1r: the crop rasterizer) from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card — also at 480x640, B = 1,
-on every mesh of the evaluation suite —, and counts each kernel's launches
+on every mesh of the evaluation suite, and at the training shapes (B = 32 and
+16 x 160 px, 2048-face corpus meshes, lit, unculled, no normals) —, and counts each kernel's launches
 on every path from zero. Imports only
 ``foundationpose_tpu_torch``. Every phase prints one JSON line; any failed
 phase exits non-zero. Without a CUDA device it exits 1 and prints no result.
@@ -1390,6 +1397,252 @@ def run_io_apps(torch, demo, metrics, raster, raster_cuda, smi):
     return total, paths
 
 
+TRAIN_MESHES = 8      # corpus of the trainer (40 meshes), cut; both appearances present
+TRAIN_STEPS = 100     # per net (the trainer's defaults: 20000 + 10000)
+TRAIN_CHUNK = 25      # the trainer's default: one host read of the losses per chunk
+TRAIN_BATCH = {"refiner": 32, "scorer": 16}  # train_agnostic --batch / --n-hyp
+# One training step through the kernels against the same step through the
+# plain rasterizer on the card, same draws and initial parameters: the
+# batches' elements within the kernel gates (COMPARE_TOL; xyz normalised by
+# the radius) on >= 0.999 of them, the targets equal, and the losses within
+# this relative difference. Measured on an H100: 6.0e-8 (refiner) and 2.5e-7
+# (scorer) — a winner flip moves a few of 819,200 pixels; the gate is 40x that.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_HARNESS = dict(scene_names=["box_gray"], learned_px=64, learned_steps=(40, 40))
+TRAIN_HARNESS_DEPTH = dict(n_register=2, n_track=5)
+
+
+def compare_train_batches(torch, a, b, radius):
+    """Share of each batch tensor's elements within the kernel gates."""
+    out = {}
+    for key in ("A", "B"):
+        d = (a[key] - b[key]).abs()
+        out[f"{key}_rgb_within_tol"] = (d[..., :3] <= 1e-3).float().mean().item()
+        out[f"{key}_xyz_within_tol"] = (d[..., 3:] <= 1e-4 / radius).float().mean().item()
+        out[f"{key}_max_abs_err"] = d.max().item()
+    for key in ("trans_gt", "rot_gt", "adds"):
+        if key in a:
+            out[f"{key}_equal"] = bool(torch.equal(a[key], b[key]))
+    return out
+
+
+def run_train(torch, raster, raster_cuda, scene, smi):
+    """The training stack on the card at full width (160 px, refine batch 32,
+    score batch 16, float32 nets, TF32 off), depth cut to an 8-mesh corpus
+    and 100 + 100 steps: K1s + K1r held against their plain versions at the
+    training shapes; one step of each net through the kernels against the
+    same step through the plain rasterizer; both corpus trainers with their
+    launches counted; a cut run resumed from its snapshot; the saved
+    checkpoint serving a learned-hybrid ``register``; the harness's
+    per-scene training fallback."""
+    import tempfile
+
+    from foundationpose_tpu_torch.apps.train_agnostic import K_TRAIN
+    from foundationpose_tpu_torch.core import geometry as geo, metrics
+    from foundationpose_tpu_torch.engine.estimator import FoundationPoseTorch
+    from foundationpose_tpu_torch.engine.scorer import HybridScorer
+    from foundationpose_tpu_torch.evalsuite import harness, scenes
+    from foundationpose_tpu_torch.models import agnostic, convert, datagen, training
+    from foundationpose_tpu_torch.models.refine_net import RefineNet
+    from foundationpose_tpu_torch.models.score_net import ScoreNetMultiPair
+
+    prepped = agnostic.prepare_corpus(TRAIN_MESHES, seed=7, max_faces=2048, device="cuda")
+    K = torch.tensor(K_TRAIN, dtype=torch.float32, device="cuda")
+    faces = lambda p: int(p["mt"]["faces"].shape[0])  # noqa: E731
+    picked = {"textured": max((p for p in prepped if p["textured"]), key=faces),
+              "vertex-coloured": max((p for p in prepped if not p["textured"]), key=faces)}
+
+    # ---- (1) the kernels at the training shapes: the hypotheses' crop
+    # windows, the hypotheses and the ground truth rendered into them, lit,
+    # no normals, unculled, as make_refine_batch / make_score_batch call them
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, setup_rows, timed_rows = [], [], []
+    for kind, (ts, rs) in (("refiner", (0.02, 0.3490658503988659)), ("scorer", (0.04, 0.9))):
+        B = TRAIN_BATCH[kind]
+        for app, p in picked.items():
+            gt = datagen.poses_from_draws(datagen.draw_poses(gen, B if kind == "refiner" else 1))
+            gt = gt.expand(B, 4, 4).contiguous()
+            hyp = datagen.perturb_from_draws(gt, datagen.draw_perturb(gen, B, ts, rs))
+            tfs = geo.compute_crop_window_tf_batch(hyp, K, 1.2, p["diameter"], (S, S))
+            for which, poses in (("hypotheses", hyp), ("ground truth", gt)):
+                tag = {"case": f"train {kind} {app} {faces(p)}-face, {which}", "batch": f"B{B}",
+                       "cull": False}
+                srow, scratch = compare_setup(raster, raster_cuda, torch, p["mt"], poses, K, tfs,
+                                              False, tag)
+                setup_rows.append(srow)
+                kw = dict(out_hw=(S, S), backface_cull=False, with_normal=False)
+                rows.append(compare_with_plain(raster, raster_cuda, torch, p["mt"], poses, K, tfs,
+                                               kw, {**tag, "with_normal": False}, scratch))
+            timed_rows.append(time_render(raster, raster_cuda, torch, f"train {kind} {app}",
+                                          p["mt"], hyp, K, tfs, (S, S), False, cull=False))
+    kernels = {"n_cases": len(rows),
+               "max_winner_flips_of_common": max(r["winner_flips_of_common"] for r in rows),
+               "min_mask_agree": min(r["mask_agree"] for r in rows),
+               "winners_lost_to_binning": sum(r["winners_lost_to_binning"] for r in rows),
+               "worst_abs_err": {key: max(r[f"{key}_max_abs_err"] for r in rows)
+                                 for key in ("depth", "xyz", "rgb")},
+               "setup_worst": {k: max(r[k] for r in setup_rows)
+                               for k in ("vtab_max_abs_err", "bbox_px_max_abs_err",
+                                         "invz_max_rel_err", "coeff_max_rel_err",
+                                         "validity_flags_differ")},
+               "min_bins_agree": min(r["bins_agree"] for r in setup_rows)}
+
+    # ---- (2) one step of each net through the kernels against the same step
+    # through the plain rasterizer: same generator state, same parameters
+    p = picked["textured"]
+    diameter_t = torch.tensor(p["diameter"], dtype=torch.float32, device="cuda")
+
+    def one_step(kind, plain):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        if kind == "refiner":
+            net = convert.flax_init(RefineNet(c_in=6), 0).cuda()
+            data = datagen.make_refine_batch(g, p["mt"], K, p["diameter"], batch=32,
+                                             input_size=S, augment=True)
+            step = lambda: training.refiner_train_step_multimesh(  # noqa: E731
+                net, agnostic.corpus_optimizer(net, 2e-4, TRAIN_STEPS), data, diameter_t)
+        else:
+            net = convert.flax_init(ScoreNetMultiPair(c_in=6, norm="group",
+                                                      residual_attn=True), 0).cuda()
+            data = datagen.make_score_batch(g, p["mt"], K, p["diameter"], p["pts"], n_hyp=16,
+                                            input_size=S, augment=True)
+            step = lambda: training.scorer_train_step(  # noqa: E731
+                net, agnostic.corpus_optimizer(net, 5e-4, TRAIN_STEPS), data)
+        return data, float(step())
+
+    step_rows = {}
+    for kind in ("refiner", "scorer"):
+        data_k, loss_k = one_step(kind, plain=False)
+        before = dict(raster_cuda.LAUNCHES)
+        with plain_rasterizer(raster, raster_cuda):
+            data_p, loss_p = one_step(kind, plain=True)
+        expect_launches(raster_cuda, before, 0, f"{kind} step through the plain rasterizer")
+        row = {"loss_kernels": loss_k, "loss_plain": loss_p,
+               "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+               **compare_train_batches(torch, data_k, data_p, p["diameter"] / 2)}
+        step_rows[kind] = row
+        ok = (row["loss_rel_diff"] <= TRAIN_LOSS_RTOL and np.isfinite(loss_k)
+              and all(v >= 0.999 for k, v in row.items() if k.endswith("_within_tol"))
+              and all(v for k, v in row.items() if k.endswith("_equal")))
+        if not ok:
+            say("train", failed={kind: row})
+            fail(f"{kind} step through the kernels disagrees with the plain step: {row}")
+
+    # ---- (3) the corpus trainers, launches counted from zero: three render
+    # calls per step (hypotheses, ground truth, the distractor)
+    n = 3 * TRAIN_STEPS
+    (net_r, stats_r), ms_r, counts_r = drive_counted(
+        raster_cuda, torch, lambda: agnostic.train_agnostic_refiner(
+            prepped, K_TRAIN, steps=TRAIN_STEPS, batch=TRAIN_BATCH["refiner"], input_size=S,
+            chunk=TRAIN_CHUNK), n, f"train_agnostic_refiner ({TRAIN_STEPS} steps x 3 render calls)")
+    (net_s, stats_s), ms_s, counts_s = drive_counted(
+        raster_cuda, torch, lambda: agnostic.train_agnostic_scorer(
+            prepped, K_TRAIN, steps=TRAIN_STEPS, n_hyp=TRAIN_BATCH["scorer"], input_size=S,
+            chunk=TRAIN_CHUNK), n, f"train_agnostic_scorer ({TRAIN_STEPS} steps x 3 render calls)")
+    trainers = {}
+    for kind, stats, ms, counts in (("refiner", stats_r, ms_r, counts_r),
+                                    ("scorer", stats_s, ms_s, counts_s)):
+        means = stats["chunk_means"]
+        trainers[kind] = {"chunk_means": means, "loss_first": stats["loss_first"],
+                          "loss_last": stats["loss_last"], "steps": stats["steps"],
+                          "wall_ms": ms, "ms_per_step": ms / TRAIN_STEPS,
+                          "steps_per_s": TRAIN_STEPS / (ms / 1e3), "launches": counts}
+        if len(means) != TRAIN_STEPS // TRAIN_CHUNK or not np.isfinite(means).all():
+            fail(f"train_agnostic_{kind}: non-finite or missing losses {means}")
+        if not means[-1] < means[0]:
+            FAILURES.append(f"train_agnostic_{kind}: the last chunk's mean loss {means[-1]:.4f} "
+                            f"is not below the first's {means[0]:.4f}")
+    total = add_counts(add_counts({}, counts_r), counts_s)
+
+    # ---- (4) a run cut after two chunks, resumed from its snapshot for one
+    # more: the snapshot's step count and the optimiser's count continue
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "resume_refiner.pt")
+        kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH["refiner"], input_size=S,
+                  chunk=TRAIN_CHUNK, resume_path=snap, ckpt_every=TRAIN_CHUNK)
+        before = dict(raster_cuda.LAUNCHES)
+        _, cut = agnostic.train_agnostic_refiner(prepped, K_TRAIN, stop_after=2, **kw)
+        at_cut = torch.load(snap, map_location="cpu", weights_only=True)
+        _, resumed = agnostic.train_agnostic_refiner(prepped, K_TRAIN, stop_after=1, **kw)
+        after = torch.load(snap, map_location="cpu", weights_only=True)
+        add_counts(total, expect_launches(raster_cuda, before, 3 * 3 * TRAIN_CHUNK,
+                                          "cut and resumed refiner run"))
+    resume = {"done_at_cut": at_cut["done"], "count_at_cut": int(at_cut["opt"]["count"]),
+              "done_after_resume": after["done"], "count_after_resume": int(after["opt"]["count"]),
+              "steps_run_after_resume": resumed["steps"], "chunk_means_before_cut": cut["chunk_means"],
+              "chunk_means_after_resume": resumed["chunk_means"]}
+    if (resume["done_at_cut"], resume["count_at_cut"], resume["done_after_resume"],
+            resume["count_after_resume"], resume["steps_run_after_resume"]) != (
+            2 * TRAIN_CHUNK, 2 * TRAIN_CHUNK, 3 * TRAIN_CHUNK, 3 * TRAIN_CHUNK, TRAIN_CHUNK) \
+            or not np.isfinite(resumed["chunk_means"]).all():
+        fail(f"train: the resumed run did not continue from its snapshot: {resume}")
+
+    # ---- (5) the output serves: save, load, a full-width learned-hybrid
+    # register on the demo scene (11 + 11 launches, as on the main path)
+    with tempfile.TemporaryDirectory() as tmp:
+        agnostic.save_agnostic(tmp, net_r, net_s, {"input_size": S, "n_meshes": TRAIN_MESHES,
+                                                   "refiner": stats_r, "scorer": stats_s})
+        refiner, scorer, meta = agnostic.load_agnostic(tmp, device="cuda")
+    est = FoundationPoseTorch(scene["mesh"], refiner=refiner, scorer=HybridScorer(scorer),
+                              device="cuda")
+    reg_args = (scene["K"], scene["rgb"], scene["depth"], scene["mask"])
+    pose, reg_ms, reg_counts = drive_counted(
+        raster_cuda, torch, lambda: est.register(*reg_args), 11,
+        "register with the freshly trained checkpoint (5 + 2 + 2 + 2 render calls)")
+    if pose.shape != (4, 4) or not np.isfinite(pose).all():
+        fail("train: register with the freshly trained checkpoint gave no finite pose")
+    serve = {"first_call_ms": reg_ms, "launches": reg_counts, "net_dtype": refiner.cfg.dtype,
+             "adds_mm": metrics.adds_err(pose, scene["gt"], scene["mesh"].vertices) * 1000,
+             "diameter_mm": est.diameter * 1000,
+             "note": "ADD-S printed, not gated: 100 steps per net on 8 meshes"}
+    add_counts(total, reg_counts)
+
+    # ---- (6) the harness's per-scene training fallback (no agnostic
+    # checkpoint): one learned scene, depth cut
+    real_suite = scenes.build_suite
+    scenes.build_suite = lambda quick=False: [dataclasses.replace(sp, **TRAIN_HARNESS_DEPTH)
+                                              for sp in real_suite(quick)]
+    try:
+        res, h_ms, h_counts = drive_counted(
+            raster_cuda, torch, lambda: harness.run_accuracy(
+                modes=("learned",), agnostic_dir=None, device="cuda", **TRAIN_HARNESS),
+            None, "evalsuite harness, learned fallback (per-scene training)")
+    finally:
+        scenes.build_suite = real_suite
+    add_counts(total, h_counts)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "ACCURACY_r04.json")) as f:
+        ref = json.load(f)["modes"]["learned"]
+    block = res["modes"]["learned"]
+    name = TRAIN_HARNESS["scene_names"][0]
+    ref_scene = next(iter(ref["register"]["full"]["scenes"].values()))
+    keys_ok = (set(block) == set(ref) and set(block["meta"]) == set(ref["meta"])
+               and set(block["register"]) == set(ref["register"])
+               and all(set(block["register"][k]["scenes"][name]) == set(ref_scene)
+                       for k in block["register"])
+               and set(block["track"]["scenes"][name])
+               == set(next(iter(ref["track"]["scenes"].values()))))
+    if not keys_ok:
+        fail("train: the harness's learned fallback block lacks keys of the JAX package's")
+    fallback = {"wall_ms": h_ms, "launches": h_counts, **TRAIN_HARNESS,
+                "depth": TRAIN_HARNESS_DEPTH,
+                "adds_mm": {k: [a * 1000 for a in v["scenes"][name]["adds"]]
+                            for k, v in block["register"].items()},
+                "track_auc_adds": block["track"]["scenes"][name]["auc_adds"]}
+    if not all(np.isfinite(v).all() for v in fallback["adds_mm"].values()):
+        fail("train: the harness's learned fallback gave non-finite ADD-S")
+
+    say("train", corpus={"n_meshes": TRAIN_MESHES, "seed": 7, "max_faces": 2048,
+                         "textured": sum(p_["textured"] for p_ in prepped),
+                         "picked_faces": {k: faces(v) for k, v in picked.items()}},
+        kernels_at_training_shapes=kernels, times_training_shapes=timed_rows,
+        one_step_against_plain=step_rows, loss_rtol=TRAIN_LOSS_RTOL, trainers=trainers,
+        resume=resume, serve=serve, harness_fallback=fallback, launches=total,
+        gate="K1s/K1r at the kernel gates; one step's batches within the kernel gates on "
+             f">= 0.999 of elements and its loss within {TRAIN_LOSS_RTOL} relative; every "
+             "loss finite, the last chunk's mean below the first's; 3 + 3 launches per step",
+        card=smi)
+    return total, {"kernels": kernels, "times": timed_rows}
+
+
 def main():
     import torch
 
@@ -1514,6 +1767,8 @@ def main():
         torch, metrics, raster, raster_cuda, smi)
     _, io_paths = run_io_apps(torch, demo, metrics, raster, raster_cuda, smi)
     by_path.update(io_paths)
+    by_path["training stack (corpus trainers, resume, serve, harness fallback)"], train_k = \
+        run_train(torch, raster, raster_cuda, scene, smi)
     all_launches = {}
     for counts in by_path.values():
         add_counts(all_launches, counts)
@@ -1531,6 +1786,12 @@ def main():
                     "K1r_bound_ms": c["K1r_bound"]["bound_ms"]}
                  for c in k1["curve"] + k1["funnel_curve"]]
     common = {"route": "cuda", "library_ms": None, "shape": main_row["shape"], "card": smi}
+    train_rows = [{k: c[k] for k in ("case", "shape", "ms", "K1s_ms", "K1r_ms", "K1s_device_ms",
+                                     "K1r_device_ms", "plain_ms", "K1s_plain_ms", "bound_ms",
+                                     "bound_by", "pixel_face_tests")}
+                  | {"K1s_bound_ms": c["K1s_bound"]["bound_ms"],
+                     "K1r_bound_ms": c["K1r_bound"]["bound_ms"]}
+                  for c in train_k["times"]]
     kernels = [{
         "name": "K1s face setup and tile binning",
         "source": sources["K1s"],
@@ -1539,8 +1800,11 @@ def main():
         "launches_by_path": {k: v["K1s"] for k, v in by_path.items()},
         "launches_per_call": {k: v["K1s"] for k, v in PER_CALL.items()},
         "max_abs_err": max(k1["setup_worst"]["vtab_max_abs_err"],
-                           suite_k["setup_worst"]["vtab_max_abs_err"]),
+                           suite_k["setup_worst"]["vtab_max_abs_err"],
+                           train_k["kernels"]["setup_worst"]["vtab_max_abs_err"]),
         "worst": k1["setup_worst"], "worst_suite_full_frames": suite_k["setup_worst"],
+        "worst_training_shapes": train_k["kernels"]["setup_worst"],
+        "training_shapes": train_rows,
         "tolerance": SETUP_GATE,
         "ms": main_row["K1s_ms"], "device_ms": main_row["K1s_device_ms"],
         "plain_ms": main_row["K1s_plain_ms"],
@@ -1553,8 +1817,12 @@ def main():
         "launches": all_launches["K1r"],
         "launches_by_path": {k: v["K1r"] for k, v in by_path.items()},
         "launches_per_call": {k: v["K1r"] for k, v in PER_CALL.items()},
-        "max_abs_err": max(*k1["worst_abs_err"].values(), *suite_k["worst_abs_err"].values()),
+        "max_abs_err": max(*k1["worst_abs_err"].values(), *suite_k["worst_abs_err"].values(),
+                           *train_k["kernels"]["worst_abs_err"].values()),
         "worst_abs_err": k1["worst_abs_err"],
+        "worst_abs_err_training_shapes": train_k["kernels"]["worst_abs_err"],
+        "max_winner_flips_training_shapes": train_k["kernels"]["max_winner_flips_of_common"],
+        "training_shapes": train_rows,
         "worst_abs_err_suite_full_frames": suite_k["worst_abs_err"],
         "max_winner_flips_suite_full_frames": suite_k["max_winner_flips_of_common"],
         "worst_abs_err_incl_winner_flips": k1["worst_abs_err_incl_winner_flips"],

@@ -11,8 +11,10 @@ publish it to NetworkTables when asked.
 ``--mode geometric`` (the default) needs no weights: projective ICP +
 geometric score, twice the refine iterations and an 8-iteration polish.
 ``--mode learned`` uses the shipped object-agnostic checkpoint
-(``weights/agnostic``) with the hybrid scorer, or the torch checkpoint given
-by ``--weights`` (``refiner.pth`` / ``scorer.pth``).
+(``weights/agnostic``) with the hybrid scorer, or the weights given by
+``--weights``: an engine checkpoint file (``models/checkpoint.save_engine``)
+or a directory of ``refiner.pth`` / ``scorer.pth`` (torch) or ``.msgpack``
+(flax) files.
 
 One difference from the JAX CLI: ``--debug`` also reaches the engine, which
 writes its own dumps into ``--out-dir`` (``vis_register.png``; at 2 the
@@ -47,7 +49,8 @@ def build_parser():
     p.add_argument("--mode", choices=["learned", "geometric"], default="geometric",
                    help="refiner/scorer backend; 'learned' uses weights/agnostic or --weights")
     p.add_argument("--weights", default=None,
-                   help="directory with refiner.pth / scorer.pth (torch checkpoint import)")
+                   help="engine checkpoint file (save_engine), or a directory with "
+                        "refiner/scorer .pth (torch) or .msgpack (flax) files")
     p.add_argument("--out-dir", default="./pose_out")
     p.add_argument("--debug", type=int, default=1)
     p.add_argument("--nt-server", default=None, help="publish pose to this NetworkTables server")
@@ -78,7 +81,7 @@ def get_mask(args, rgb, depth):
 
 def build_engine(args, mesh, device):
     """The estimator of ``--mode``: geometric, or learned with the agnostic
-    checkpoint + hybrid scorer unless ``--weights`` names a torch checkpoint."""
+    checkpoint + hybrid scorer unless ``--weights`` names other weights."""
     from foundationpose_tpu_torch.apps.demo_synthetic import default_weights_dir
     from foundationpose_tpu_torch.engine.estimator import EstimatorConfig, FoundationPoseTorch
 

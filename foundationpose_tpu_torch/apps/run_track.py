@@ -3,8 +3,10 @@
 Counterpart of foundationpose_tpu/apps/run_track.py (same options, same
 summary), on the port's engine: ``device=None`` means cuda. ``--stream`` (the
 default) enqueues ``track_one(sync=False)`` frame after frame and reads the
-device-resident poses back only after the loop. ``--weights`` (an engine
-checkpoint of the JAX training stack) waits for the port's training slice.
+device-resident poses back only after the loop. ``--weights`` (learned mode)
+names an engine checkpoint written by ``models/checkpoint.save_engine``; the
+JAX package's orbax directories are not read (carry weights across as an
+object-agnostic npz checkpoint).
 
 Upstream FoundationPose ships a ``run_demo.py`` tracking entry; this fork is
 stripped to the single-frame ``main.py`` (SURVEY.md note 4) but keeps the
@@ -52,11 +54,6 @@ def track_video(reader, mesh=None, mode="geometric", weights=None,
     from foundationpose_tpu_torch.core import meshio, metrics
     from foundationpose_tpu_torch.engine.estimator import EstimatorConfig, FoundationPoseTorch
 
-    if weights:
-        raise NotImplementedError(
-            "run_track --weights reads an engine checkpoint of the JAX training stack "
-            "(orbax, foundationpose_tpu/models/checkpoint.py); that comes with the "
-            "training slice of the port")
     device = resolve_device(device)
 
     if mesh is None:
@@ -85,6 +82,10 @@ def track_video(reader, mesh=None, mode="geometric", weights=None,
         )
     else:
         est = FoundationPoseTorch(mesh, config=cfg, device=device)
+        if weights:
+            from foundationpose_tpu_torch.models.checkpoint import load_engine
+
+            load_engine(est, weights)
 
     n = len(reader)
     if max_frames:

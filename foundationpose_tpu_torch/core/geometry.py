@@ -2,8 +2,9 @@
 
 Counterpart of foundationpose_tpu/core/geometry.py, as far as the ported
 path needs it: ``normalize``, ``hat``, ``so3_exp_map``, ``se3_exp_map``,
-``rotation_6d_to_matrix``, ``euler_matrix``,
-``egocentric_delta_pose_to_pose``, ``project_pts``,
+``rotation_6d_to_matrix``, ``euler_matrix``, ``transform_pts``,
+``pose_to_egocentric_delta_pose``, ``egocentric_delta_pose_to_pose``,
+``project_pts``,
 ``compute_crop_window_tf_batch``, ``depth2xyzmap``.
 
 Conventions
@@ -120,6 +121,25 @@ def euler_matrix(ai, aj, ak):
     T = torch.eye(4, dtype=R.dtype, device=R.device)
     T[:3, :3] = R
     return T
+
+
+def transform_pts(pts, tf):
+    """Transform points (..., N, D) by homogeneous matrices (..., D+1, D+1),
+    broadcasting over the leading axes; a batch of tfs whose batch axis is not
+    the points axis is unsqueezed over it (the JAX package's rule)."""
+    pts = as_f32(pts)
+    tf = as_f32(tf, pts.device)
+    if tf.ndim >= 3 and tf.shape[-3] != pts.shape[-2]:
+        tf = tf[..., None, :, :]
+    return (tf[..., :-1, :-1] @ pts[..., None] + tf[..., :-1, -1:])[..., 0]
+
+
+def pose_to_egocentric_delta_pose(A_in_cam, B_in_cam):
+    """The refiner's training target: the egocentric delta that maps pose A
+    onto pose B (inverse of ``egocentric_delta_pose_to_pose``)."""
+    trans_delta = B_in_cam[..., :3, 3] - A_in_cam[..., :3, 3]
+    rot_mat_delta = B_in_cam[..., :3, :3] @ A_in_cam[..., :3, :3].transpose(-1, -2)
+    return trans_delta, rot_mat_delta
 
 
 def egocentric_delta_pose_to_pose(A_in_cam, trans_delta, rot_mat_delta):

@@ -13,8 +13,9 @@ truth (``evalsuite/scenes.py``) and the AUC sweep is the same (0..0.1 m).
 Modes: ``geometric`` (projective ICP + geometric score), ``learned`` (one
 object-agnostic RefineNet/ScoreNet pair for every scene) and
 ``learned_hybrid`` (the same pair with ``HybridScorer``, the shipping
-default). The JAX package's fallback that trains a net pair per scene when no
-agnostic checkpoint is given waits for the port's training slice.
+default). Without an agnostic checkpoint, ``learned`` falls back to a net
+pair trained per scene (the scenes marked ``learned``) with
+``models/datagen.py``'s per-mesh trainers, as the JAX package does.
 
     python -m foundationpose_tpu_torch.evalsuite.harness --out /tmp/acc.json \\
         [--quick] [--modes geometric,learned,learned_hybrid] [--no-track] \\
@@ -64,13 +65,15 @@ def _auc(errs, max_val=0.1):
 
 
 def _register_block(suite, renderers, make_estimator, est_cfg, schedules,
-                    progress_cb=None, out=None):
+                    scene_filter=None, progress_cb=None, out=None):
     out = {} if out is None else out  # filled in place so incremental
     for sched_name, sched_kw in schedules.items():  # checkpoints see it
         cfg = dataclasses.replace(est_cfg, **sched_kw)
         per_scene = {}
         pooled_adds, pooled_add = [], []
         for spec in suite:
+            if scene_filter and not scene_filter(spec):
+                continue
             r = renderers[spec.name]
             est = make_estimator(spec, cfg)
             adds_l, add_l, terr_l, vis_l = [], [], [], []
@@ -122,11 +125,13 @@ def _register_block(suite, renderers, make_estimator, est_cfg, schedules,
     return out
 
 
-def _track_block(suite, renderers, make_estimator, est_cfg):
+def _track_block(suite, renderers, make_estimator, est_cfg, scene_filter=None):
     per_scene = {}
     pooled_adds = []
     ates = []
     for spec in suite:
+        if scene_filter and not scene_filter(spec):
+            continue
         r = renderers[spec.name]
         est = make_estimator(spec, est_cfg)
         traj = r.track_trajectory()
@@ -162,8 +167,8 @@ def _track_block(suite, renderers, make_estimator, est_cfg):
 
 
 def run_accuracy(out_path=None, quick=False, modes=("geometric", "learned"),
-                 input_size=160, hyp_grid=None, track=True, agnostic_dir="auto",
-                 scene_names=None, device=None):
+                 input_size=160, learned_px=64, learned_steps=(2000, 4000), hyp_grid=None,
+                 track=True, agnostic_dir="auto", scene_names=None, device=None):
     """Run the whole suite; returns (and optionally writes) the results dict.
 
     quick=True: 2 scenes, 2 register poses, 6 track frames, quarter
@@ -172,7 +177,9 @@ def run_accuracy(out_path=None, quick=False, modes=("geometric", "learned"),
     only the subset). ``agnostic_dir``: the object-agnostic checkpoint that
     ``learned`` and ``learned_hybrid`` evaluate on every scene at its native
     resolution; "auto" = ``weights/agnostic`` of this checkout when present,
-    None = the per-scene training fallback, which is not ported yet.
+    None = the per-scene training fallback: a refiner and a scorer trained
+    for each scene marked ``learned`` at ``learned_px`` for ``learned_steps``
+    (refiner, scorer) steps, float32.
     ``device=None`` means cuda (raises without a card).
     """
     device = resolve_device(device)
@@ -289,11 +296,58 @@ def run_accuracy(out_path=None, quick=False, modes=("geometric", "learned"),
             if track:
                 block["track"] = _track_block(suite, renderers, maker, est_cfg)
                 checkpoint()
+    # ---- learned mode (fallback): per-mesh synthetically-trained nets ----
     elif "learned" in modes:
-        raise NotImplementedError(
-            "learned mode without an agnostic checkpoint trains a net pair per scene "
-            "(foundationpose_tpu/models/datagen.py); that comes with the training "
-            "slice of the port — pass agnostic_dir")
+        from foundationpose_tpu_torch.engine.refiner import PoseRefiner, RefinerConfig
+        from foundationpose_tpu_torch.engine.scorer import PoseScorer, ScorerConfig
+        from foundationpose_tpu_torch.models import datagen
+
+        steps_r, steps_s = learned_steps
+        learned_nets = {}
+        for spec in suite:
+            if not spec.learned:
+                continue
+            t0 = time.perf_counter()
+            net_r, losses_r = datagen.train_refiner_synthetic(
+                spec.mesh, scenes_mod.K_DEFAULT, steps=steps_r, batch=16,
+                input_size=learned_px, lr=3e-4, device=device)
+            net_s, losses_s = datagen.train_scorer_synthetic(
+                spec.mesh, scenes_mod.K_DEFAULT, steps=steps_s, n_hyp=8,
+                input_size=learned_px, lr=1e-3, device=device)
+            refiner = PoseRefiner(RefinerConfig(input_size=learned_px, dtype="float32"),
+                                  device=device)
+            refiner.net.load_state_dict(net_r.state_dict())
+            scorer = PoseScorer(ScorerConfig(input_size=learned_px, dtype="float32",
+                                             norm="group", residual_attn=True), device=device)
+            scorer.net.load_state_dict(net_s.state_dict())
+            learned_nets[spec.name] = (refiner, scorer)
+            logging.info(
+                "learned[%s]: trained in %.0fs (refine loss %.3f->%.3f, "
+                "score %.3f->%.3f)", spec.name, time.perf_counter() - t0,
+                np.mean(losses_r[:10]), np.mean(losses_r[-10:]),
+                np.mean(losses_s[:10]), np.mean(losses_s[-10:]),
+            )
+
+        def make_learned(spec, cfg):
+            # fresh predictor objects per estimator (it replaces their configs
+            # for backface culling) around the scene's SHARED nets
+            refiner, scorer = learned_nets[spec.name]
+            return FoundationPoseTorch(spec.mesh, symmetry_tfs=spec.symmetry_tfs, config=cfg,
+                                       refiner=copy.copy(refiner), scorer=copy.copy(scorer),
+                                       device=device)
+
+        sel = lambda spec: spec.learned  # noqa: E731
+        block = {"meta": {"px": learned_px, "steps": list(learned_steps)}}
+        results["modes"]["learned"] = block
+        block["register"] = {}
+        _register_block(
+            suite, renderers, make_learned, est_cfg, _schedules(learned_px),
+            scene_filter=sel, progress_cb=checkpoint, out=block["register"])
+        checkpoint()
+        if track:
+            block["track"] = _track_block(suite, renderers, make_learned, est_cfg,
+                                          scene_filter=sel)
+            checkpoint()
 
     # ---- headline comparisons ----
     summary = {}

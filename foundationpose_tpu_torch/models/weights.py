@@ -15,12 +15,17 @@ only: it builds the flax parameter tree from a torch state_dict
 and ``models/convert.py`` carries that tree into the port's modules (the
 inverse layout map), so a checkpoint goes through the same two maps as in
 the JAX package plus the one the shipped agnostic weights already use.
+Flax-serialised ``.msgpack`` parameter files are read by a small msgpack
+decoder of the port's own (``read_flax_msgpack``; no flax or msgpack
+package), and a file written by ``models/checkpoint.save_engine`` loads as
+it is.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import struct
 
 import numpy as np
 
@@ -185,25 +190,130 @@ def score_state_dict(state_dict, net, use_bn=False):
     return flax_params_to_state_dict(flatten_params(tree), net)
 
 
-def load_engine_params(estimator, weights_dir):
-    """Load refiner + scorer weights into a ``FoundationPoseTorch`` engine from
-    a directory holding ``refiner.pth`` / ``scorer.pth`` (torch). The nets
-    must be built norm-free (``norm=None``, the configs' default) for these
-    checkpoints; a ``HybridScorer`` takes the weights into its learned half.
-    The flax serialization (``.msgpack``) is not read by the port."""
+# ---------------------------------------------------------------------------
+# flax's msgpack serialisation (``flax.serialization.to_bytes``), read in
+# plain Python: maps, arrays, strings, binaries, numbers and the ndarray
+# extension (code 1: msgpack of (shape, dtype name, C-order bytes)).
+
+_FIXED = {0xc0: None, 0xc2: False, 0xc3: True}
+
+
+class _Reader:
+    def __init__(self, data):
+        self.b, self.i = memoryview(data), 0
+
+    def take(self, n):
+        out = self.b[self.i:self.i + n]
+        self.i += n
+        return bytes(out)
+
+    def unpack(self, fmt):
+        return struct.unpack(">" + fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def value(self):
+        t = self.take(1)[0]
+        if t <= 0x7f:
+            return t
+        if t >= 0xe0:
+            return t - 0x100
+        if 0x80 <= t <= 0x8f:
+            return self.map(t & 0x0f)
+        if 0x90 <= t <= 0x9f:
+            return [self.value() for _ in range(t & 0x0f)]
+        if 0xa0 <= t <= 0xbf:
+            return self.take(t & 0x1f).decode()
+        if t in _FIXED:
+            return _FIXED[t]
+        sized = {0xc4: ("B", "bin"), 0xc5: ("H", "bin"), 0xc6: ("I", "bin"),
+                 0xd9: ("B", "str"), 0xda: ("H", "str"), 0xdb: ("I", "str"),
+                 0xdc: ("H", "arr"), 0xdd: ("I", "arr"), 0xde: ("H", "map"), 0xdf: ("I", "map"),
+                 0xc7: ("B", "ext"), 0xc8: ("H", "ext"), 0xc9: ("I", "ext")}
+        if t in sized:
+            fmt, kind = sized[t]
+            n = self.unpack(fmt)
+            if kind == "bin":
+                return self.take(n)
+            if kind == "str":
+                return self.take(n).decode()
+            if kind == "arr":
+                return [self.value() for _ in range(n)]
+            if kind == "map":
+                return self.map(n)
+            return self.ext(self.unpack("b"), n)
+        if 0xd4 <= t <= 0xd8:
+            return self.ext(self.unpack("b"), 1 << (t - 0xd4))
+        scalars = {0xca: "f", 0xcb: "d", 0xcc: "B", 0xcd: "H", 0xce: "I", 0xcf: "Q",
+                   0xd0: "b", 0xd1: "h", 0xd2: "i", 0xd3: "q"}
+        if t in scalars:
+            return self.unpack(scalars[t])
+        raise ValueError(f"msgpack type byte 0x{t:02x} not supported")
+
+    def map(self, n):
+        out = {}
+        for _ in range(n):
+            k = self.value()
+            out[k.decode() if isinstance(k, bytes) else k] = self.value()
+        return out
+
+    def ext(self, code, n):
+        data = self.take(n)
+        if code not in (1, 3):  # ndarray, numpy scalar
+            raise ValueError(f"msgpack extension {code} not supported")
+        shape, dtype, buf = _Reader(data).value()
+        dtype = dtype.decode() if isinstance(dtype, bytes) else dtype
+        if dtype == "bfloat16":
+            u16 = np.frombuffer(buf, np.uint16).astype(np.uint32) << 16
+            arr = u16.view(np.float32)
+        else:
+            arr = np.frombuffer(buf, dtype=np.dtype(dtype))
+        arr = arr.reshape(shape)
+        return arr[()] if code == 3 else arr
+
+
+def read_flax_msgpack(path):
+    """A ``flax.serialization.to_bytes`` file -> flat {"a/b/kernel": array}."""
+    with open(path, "rb") as f:
+        tree = _Reader(f.read()).value()
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            if "__msgpack_chunked_array__" in node:
+                raise ValueError(f"{path}: chunked arrays (> 1 GiB leaves) are not supported")
+            out = {}
+            for k, v in node.items():
+                out.update(walk(v, f"{prefix}/{k}" if prefix else str(k)))
+            return out
+        return {prefix: np.asarray(node)}
+
+    return walk(tree, "")
+
+
+def load_engine_params(estimator, weights):
+    """Load refiner + scorer weights into a ``FoundationPoseTorch`` engine.
+
+    ``weights`` is either a file written by ``models/checkpoint.save_engine``
+    (both nets, as they are), or a directory holding ``refiner.pth`` /
+    ``scorer.pth`` (torch checkpoints of the reference; the nets must be
+    built norm-free, the configs' default) or ``refiner.msgpack`` /
+    ``scorer.msgpack`` (flax-serialised parameters of the JAX package). A
+    ``HybridScorer`` takes the weights into its learned half. Orbax
+    directories are not read (``models/checkpoint.py``)."""
+    from foundationpose_tpu_torch.models import checkpoint
+
+    if os.path.isfile(weights):
+        checkpoint.load_engine(estimator, weights)
+        return
     for name, target, convert in (("refiner", estimator.refiner, refine_state_dict),
                                   ("scorer", estimator.scorer, score_state_dict)):
-        pth = os.path.join(weights_dir, f"{name}.pth")
-        msg = os.path.join(weights_dir, f"{name}.msgpack")
+        pth = os.path.join(weights, f"{name}.pth")
+        msg = os.path.join(weights, f"{name}.msgpack")
+        net = checkpoint._net(target)
         if os.path.exists(pth):
-            net = target.net
-            sd = convert(load_torch_checkpoint(pth), net)
-            net.load_state_dict(sd, strict=True)
+            net.load_state_dict(convert(load_torch_checkpoint(pth), net), strict=True)
             logging.info("loaded %s weights from %s", name, pth)
         elif os.path.exists(msg):
-            raise NotImplementedError(
-                f"{msg}: flax-serialized weights are not read by the port; the "
-                "checkpoint formats of the JAX training stack come with the training "
-                "slice of the port (use the torch .pth files)")
+            net.load_state_dict(flax_params_to_state_dict(read_flax_msgpack(msg), net),
+                                strict=True)
+            logging.info("loaded %s weights from %s", name, msg)
         else:
-            logging.warning("no %s weights found in %s", name, weights_dir)
+            logging.warning("no %s weights found in %s", name, weights)

@@ -171,7 +171,7 @@ def small_engine(monkeypatch):
                         functools.partial(geometric.GeometricConfig, input_size=32))
 
 
-def test_track_video_stream_equals_sync(tmp_path, small_engine):
+def test_track_video_stream_equals_sync(tmp_path, small_engine, monkeypatch):
     from foundationpose_tpu_torch.io.datareader import YcbineoatReader
 
     mesh = _l_mesh()
@@ -187,8 +187,24 @@ def test_track_video_stream_equals_sync(tmp_path, small_engine):
     assert set(summ_s) == {"frames", "track_fps", "adds_mean", "adds_recall_0.1d",
                            "adds_auc_0.1", "ate_rmse"}
     assert summ_s["frames"] == 3 and summ_s["ate_rmse"] is not None
-    with pytest.raises(NotImplementedError, match="training slice"):
-        run_track.track_video(reader, mesh=mesh, weights="ckpt", device="cpu")
+    # --weights (learned mode): an engine checkpoint file of the port; an
+    # orbax directory of the JAX package is refused with the npz bridge named
+    from foundationpose_tpu_torch.models import checkpoint
+
+    src = est_mod.FoundationPoseTorch(mesh, device="cpu")
+    with torch.no_grad():
+        src.refiner.net.trans_out.bias.add_(0.01)
+    path = str(tmp_path / "engine.pt")
+    checkpoint.save_engine(src, path)
+    loaded = []
+    real_load = checkpoint.load_engine
+    monkeypatch.setattr(checkpoint, "load_engine",
+                        lambda est, p: (real_load(est, p), loaded.append(est))[0])
+    res_w, _ = run_track.track_video(reader, mode="learned", weights=path, max_frames=2, **kw)
+    assert len(res_w) == 2 and np.isfinite([r["adds"] for r in res_w]).all()
+    assert torch.equal(loaded[0].refiner.net.trans_out.bias, src.refiner.net.trans_out.bias)
+    with pytest.raises(ValueError, match="npz"):
+        run_track.track_video(reader, mode="learned", weights=str(tmp_path), **kw)
 
 
 def _write_pose_inputs(d, mesh):

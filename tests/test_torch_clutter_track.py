@@ -1,0 +1,95 @@
+"""Fault hunt: ``compound_clutter`` tracking, the port against the JAX
+package frame by frame.
+
+Both packages run learned_hybrid mode with the shipped object-agnostic
+weights, float32 nets on both sides (the JAX harness runs bfloat16, whose
+rounding would hide where the chains part), over the scene's whole
+trajectory at quarter resolution (120x160, the quick suite's intrinsics) with
+the quick suite's hypothesis grid (12 views x 3 in-plane = 36). Both see the
+SAME frames (rendered once by the JAX package's ``SceneRenderer``), so only
+the estimators' chains can part. Prints, per frame, the translation and
+rotation difference between the two poses and each package's ADD-S; asserts
+that the chains agree within float rounding (1 mm, 0.01 rad) on every frame
+up to the first one the JAX package itself loses (ADD-S above 10 % of the
+diameter), and reports that frame.
+
+    env JAX_PLATFORMS=cpu python -m pytest tests/test_torch_clutter_track.py -m slow -s
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _rot_diff(a, b):
+    c = (np.trace(a[:3, :3].T @ b[:3, :3]) - 1) / 2
+    return float(np.arccos(np.clip(c, -1, 1)))
+
+
+@pytest.mark.slow
+def test_compound_clutter_track_chain_matches_jax():
+    from foundationpose_tpu.core import metrics as jmetrics
+    from foundationpose_tpu.engine.estimator import EstimatorConfig as JConfig
+    from foundationpose_tpu.engine.estimator import FoundationPoseTPU
+    from foundationpose_tpu.engine.refiner import PoseRefiner as JRefiner
+    from foundationpose_tpu.engine.refiner import RefinerConfig as JRefinerConfig
+    from foundationpose_tpu.engine.scorer import HybridScorer as JHybrid
+    from foundationpose_tpu.engine.scorer import PoseScorer as JScorer
+    from foundationpose_tpu.engine.scorer import ScorerConfig as JScorerConfig
+    from foundationpose_tpu.evalsuite import scenes as jscenes
+    from foundationpose_tpu.models import agnostic as jagnostic
+    from foundationpose_tpu_torch.engine.estimator import EstimatorConfig, FoundationPoseTorch
+    from foundationpose_tpu_torch.engine.scorer import HybridScorer
+    from foundationpose_tpu_torch.models import agnostic
+
+    torch.set_num_threads(4)
+    wdir = os.path.join(ROOT, "weights", "agnostic")
+    spec = [s for s in jscenes.build_suite() if s.name == "compound_clutter"][0]
+    K = jscenes.K_DEFAULT.copy()
+    K[:2] *= 0.25
+    r = jscenes.SceneRenderer(spec, K=K, hw=(120, 160))
+    traj = r.track_trajectory()
+    frames = [r.render(gt) for gt in traj]
+    grid = dict(min_n_views=12, inplane_step=120)
+
+    params_r = jagnostic.load_params_npz(os.path.join(wdir, "refiner.npz"),
+                                         JRefiner(JRefinerConfig(input_size=160)).params)
+    params_s = jagnostic.load_params_npz(
+        os.path.join(wdir, "scorer.npz"),
+        JScorer(JScorerConfig(input_size=160, norm="group", residual_attn=True)).params)
+    jest = FoundationPoseTPU(
+        spec.mesh, symmetry_tfs=spec.symmetry_tfs, config=JConfig(register_iterations=5, **grid),
+        refiner=JRefiner(JRefinerConfig(input_size=160, dtype="float32"), params=params_r),
+        scorer=JHybrid(JScorer(JScorerConfig(input_size=160, dtype="float32", norm="group",
+                                             residual_attn=True), params=params_s)))
+    refiner, scorer, _ = agnostic.load_agnostic(wdir, device="cpu")
+    pest = FoundationPoseTorch(spec.mesh, symmetry_tfs=spec.symmetry_tfs,
+                               config=EstimatorConfig(register_iterations=5, **grid),
+                               refiner=refiner, scorer=HybridScorer(scorer), device="cpu")
+
+    diameter = float(jest.diameter)
+    rows = []
+    for i, (gt, (rgb, depth, vis, _)) in enumerate(zip(traj, frames)):
+        if i == 0:
+            jest.register(K, rgb, depth, vis)
+            pest.register(K, rgb, depth, vis)
+            jp = np.asarray(jest.pose_last @ jest.get_tf_to_centered_mesh(), np.float64)
+            pp = np.asarray(pest.pose_last @ pest.get_tf_to_centered_mesh(), np.float64)
+        else:
+            jp = np.asarray(jest.track_one(rgb, depth, K), np.float64)
+            pp = np.asarray(pest.track_one(rgb, depth, K), np.float64)
+        rows.append({"frame": i, "dt_mm": float(np.linalg.norm(jp[:3, 3] - pp[:3, 3]) * 1000),
+                     "drot_rad": _rot_diff(jp, pp),
+                     "adds_jax_mm": float(jmetrics.adds_err(jp, gt, spec.mesh.vertices)) * 1000,
+                     "adds_port_mm": float(jmetrics.adds_err(pp, gt, spec.mesh.vertices)) * 1000})
+    parted = next((r_ for r_ in rows if r_["dt_mm"] > 1.0 or r_["drot_rad"] > 0.01), None)
+    lost = next((r_ for r_ in rows if r_["adds_jax_mm"] > 100 * diameter), None)
+    print(json.dumps({"scene": spec.name, "diameter_mm": diameter * 1000, "frames": rows,
+                      "first_parted": parted, "first_lost_by_jax": lost}))
+    last = lost["frame"] if lost else len(rows)
+    assert parted is None or parted["frame"] >= last, (parted, lost)

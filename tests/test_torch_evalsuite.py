@@ -141,8 +141,12 @@ def test_harness_json_contract(tmp_path, monkeypatch):
 
 
 def test_harness_refuses_what_waits_for_the_training_slice():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        harness.run_accuracy(modes=("learned",), agnostic_dir=None, device="cpu",
+    """Nothing waits any more: without an agnostic checkpoint ``learned``
+    trains per scene (tests/test_torch_agnostic.py). What the harness still
+    refuses is a checkpoint directory that is not there, and the card when
+    there is none."""
+    with pytest.raises(FileNotFoundError, match="agnostic checkpoint"):
+        harness.run_accuracy(modes=("learned",), agnostic_dir="/no/such/dir", device="cpu",
                              scene_names=["no_such_scene"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,5 +1,6 @@
 """The port stands alone: neither ``foundationpose_tpu_torch`` nor
-``chip_smoke.py`` imports jax, flax or anything of the JAX package."""
+``chip_smoke.py`` imports jax, flax, optax, orbax or anything of the JAX
+package, and the port imports without h5py."""
 
 import os
 import re
@@ -11,7 +12,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "foundationpose_tpu_torch")
 FORBIDDEN = [
-    re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M),
+    re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b", re.M),
     # word-bounded so that foundationpose_tpu_torch passes
     re.compile(r"\bfoundationpose_tpu\."),
     re.compile(r"\bfrom\s+foundationpose_tpu\s"),
@@ -55,7 +56,7 @@ def test_importing_the_port_loads_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'foundationpose_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'foundationpose_tpu')]\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
@@ -84,6 +85,30 @@ def test_port_imports_without_cv2_or_pil():
         "    assert 'PIL' in str(e), e\n"
         "else:\n"
         "    raise AssertionError('a .jpg read without PIL')\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+def test_port_imports_without_h5py():
+    """Every module of the port imports with h5py blocked (the card's machine
+    need not have it): ``models/h5data.py`` imports it where it is used, and
+    says so when it is missing."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['h5py'] = None\n"
+        "import foundationpose_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from foundationpose_tpu_torch.models import h5data\n"
+        "try:\n"
+        "    h5data.PairH5Dataset('x.h5')\n"
+        "except ImportError as e:\n"
+        "    assert 'h5py' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('an archive opened without h5py')\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

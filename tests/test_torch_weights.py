@@ -5,8 +5,9 @@ tests/test_weights.py, with and without BatchNorm) goes through the JAX
 package's import into its flax nets and through the port's import into the
 port's nets; both forwards run the same numpy inputs in float32 on the CPU.
 Gate: atol 2e-4 + rtol 1e-3, as tests/test_torch_nets.py holds the nets.
-``load_engine_params`` reads ``refiner.pth`` / ``scorer.pth`` into an engine
-and refuses the flax ``.msgpack`` format.
+``load_engine_params`` reads ``refiner.pth`` / ``scorer.pth``, the JAX
+package's flax ``.msgpack`` files (exactly) and the port's engine checkpoint
+file into an engine.
 """
 
 import jax
@@ -89,7 +90,29 @@ def test_load_engine_params(tmp_path, caplog):
     (tmp_path / "empty").mkdir()
     weights.load_engine_params(est, str(tmp_path / "empty"))  # warns, keeps the weights
     assert "no refiner weights" in caplog.text
+    # flax-serialised parameters of the JAX package (``.msgpack``), read by
+    # the port's own decoder, and an engine checkpoint file of the port
+    from flax import serialization
+
+    from foundationpose_tpu_torch.models import checkpoint, convert
+
     (tmp_path / "flax").mkdir()
-    (tmp_path / "flax" / "refiner.msgpack").write_bytes(b"\x80")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        weights.load_engine_params(est, str(tmp_path / "flax"))
+    z = jnp.zeros((1, 32, 32, 6))
+    jparams = {"refiner": JRefineNet(c_in=6, dtype=jnp.float32).init(jax.random.PRNGKey(1), z, z),
+               "scorer": JScoreNet(c_in=6, dtype=jnp.float32).init(jax.random.PRNGKey(2), z, z, 1)}
+    for name, p in jparams.items():
+        (tmp_path / "flax" / f"{name}.msgpack").write_bytes(serialization.to_bytes(p))
+    weights.load_engine_params(est, str(tmp_path / "flax"))
+    for name, net in (("refiner", est.refiner.net), ("scorer", est.scorer.net)):
+        flat = {"/".join(str(getattr(k, "key", k)) for k in kp): np.asarray(v)
+                for kp, v in jax.tree_util.tree_flatten_with_path(jparams[name])[0]}
+        want = convert.flax_params_to_state_dict(flat, net)
+        for k, v in net.state_dict().items():
+            assert torch.equal(v, want[k].to(v.dtype)), (name, k)
+    path = str(tmp_path / "engine.pt")
+    checkpoint.save_engine(est, path)
+    est2 = FoundationPoseTorch(meshio.make_box((0.1, 0.08, 0.05)), device="cpu",
+                               config=EstimatorConfig(min_n_views=4, inplane_step=180))
+    weights.load_engine_params(est2, path)
+    for a, b in zip(est.scorer.net.state_dict().values(), est2.scorer.net.state_dict().values()):
+        assert torch.equal(a, b)
