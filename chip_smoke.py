@@ -29,13 +29,21 @@ bf16 nets from the shipped object-agnostic checkpoint where a net runs):
   held against the same step through the plain rasterizer, both corpus
   trainers (3 + 3 launches per step, falling losses), a cut run resumed from
   its snapshot, the saved checkpoint serving a learned-hybrid ``register``,
-  and the harness's per-scene training fallback.
+  and the harness's per-scene training fallback;
+- the neural object field through ``run_field.main`` at ``FieldConfig()``
+  widths (2048 rays x (128 + 128) samples, triplane encoder, 3 mm mesh, 1024
+  texture, ``FIELD_N_STEP`` steps) on 60 frames of the demo
+  L-shape it renders and writes: SDF signs and the mesh against the true
+  surface, K1s + K1r at the texture bake's shape (with the winning faces and
+  barycentrics) against their plain versions, the true mesh baked and
+  re-rendered, and the rays/s of the triplane and hash encoders.
 
 It builds every CUDA kernel of those paths (K1s: face setup and tile binning,
 K1r: the crop rasterizer) from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card — also at 480x640, B = 1,
 on every mesh of the evaluation suite, and at the training shapes (B = 32 and
-16 x 160 px, 2048-face corpus meshes, lit, unculled, no normals) —, and counts each kernel's launches
+16 x 160 px, 2048-face corpus meshes, lit, unculled, no normals) and at the
+bake's (views x 480x640, unlit, unculled, tri + bary) —, and counts each kernel's launches
 on every path from zero. Imports only
 ``foundationpose_tpu_torch``. Every phase prints one JSON line; any failed
 phase exits non-zero. Without a CUDA device it exits 1 and prints no result.
@@ -234,8 +242,21 @@ COMPARE_GATE = (
     "texture's gradient — steepest on the atlas seam — multiplies a ~1e-6 difference in the "
     "interpolated uv). Both sides are float32; the camera-space vertices differ in the "
     "summation order of a 3x3 product, which can flip the winner between two faces that "
-    "share an edge, where their scores tie to an ulp"
+    "share an edge, where their scores tie to an ulp. Winner flips are gated by value: a "
+    "flip whose depth and xyz agree within the tolerance is such a tie; flips with "
+    "differing values <= 0.1 % of common pixels (the raw share is printed beside it). "
+    "Barycentrics, where asked for, within 1e-5 on same-winner pixels and 0 on background. "
+    "No pixel is excused, except at the texture bake's shape (marching tetrahedra's faces "
+    "of ~1e-3 px, whose float32 barycentric coefficients are noise): there a disagreement "
+    "is excused only where every winner holds its pixel by its true (float64) barycentrics "
+    "or by its float32 coefficients evaluated exactly, and one of them only by the latter; "
+    "excused pixels <= 15 % of the frame, and on >= 0.999 of those where the kernel "
+    "misses or its winner truly holds the pixel it agrees with the plain render of the mesh "
+    "without the view's noise faces"
 )
+BARY_TOL = 1e-5  # K1r's barycentrics against the plain version's, same-winner pixels
+EXCUSE_CAP = 0.15  # share of the bake's frame coefficient noise may excuse (H100: <= 0.076)
+NOISE_SUM = 0.5    # a face's coefficients are noise when its barycentrics sum to 1 +- this
 SETUP_TOL = {"vtab": 1e-5, "bbox_px": 1e-2, "invz_rel": 1e-5, "coeff_rel": 1e-3}
 SETUP_GATE = (
     "vtab (camera-space vertices in metres, unit normals, diffuse) within 1e-5; on faces "
@@ -307,21 +328,36 @@ def compare_setup(raster, raster_cuda, torch, mt, poses, K, tfs, cull, tag, hw=(
     return row, scratch
 
 
-def compare_with_plain(raster, raster_cuda, torch, mt, poses, K, tfs, kw, tag, scratch):
+def compare_with_plain(raster, raster_cuda, torch, mt, poses, K, tfs, kw, tag, scratch,
+                       excuse_cap=0.0):
     """One render call (K1r on the scratch K1s just made) against the plain
     version on the same tensors. Returns the row of figures; exits on a
-    disagreement or on a winner lost to binning."""
-    a = raster_cuda.rasterize_cuda(mt, scratch, kw["out_hw"], True, 0.8, 0.5,
-                                   kw["with_normal"], with_tri=True)
+    disagreement or on a winner lost to binning. ``kw`` may also ask for the
+    unlit call (``use_light``) and the barycentrics (``with_bary``, gated at
+    BARY_TOL on same-winner pixels).
+
+    Winner flips are gated by what they produce: a flip whose depth and xyz
+    agree within COMPARE_TOL is a shared-edge tie (both faces give the same
+    point); flips whose values differ are gated at 0.1 % of common pixels.
+    The raw count is reported beside it.
+
+    ``excuse_cap`` > 0 (the texture bake's shape) lets that share of the
+    pixels be excused as float32 coefficient noise (``coefficient_noise``);
+    at 0 (every other shape) no pixel is excused."""
+    use_light, with_bary = kw.get("use_light", True), kw.get("with_bary", False)
+    a = raster_cuda.rasterize_cuda(mt, scratch, kw["out_hw"], use_light, 0.8, 0.5,
+                                   kw["with_normal"], with_tri=True, with_bary=with_bary)
     torch.cuda.synchronize()
     a["tri"] = a["tri"].long()
     ref = raster.render_crops(mt, poses, K, tfs, **kw)
     torch.cuda.synchronize()
-    agree = (a["mask"] == ref["mask"]).float().mean().item()
     both = a["mask"] & ref["mask"]
     same = both & (a["tri"] == ref["tri"])
-    # no winner may be lost to binning: the plain render's winning face of a
-    # pixel must be in the kernel's bins of that pixel's tile
+    tol = dict(COMPARE_TOL)
+    tie = ((a["depth"] - ref["depth"]).abs() <= tol["depth"]) \
+        & ((a["xyz"] - ref["xyz"]).abs().amax(dim=-1) <= tol["xyz"])
+    # the plain render's winning face of a pixel must be in the kernel's bins
+    # of that pixel's tile
     B, F = poses.shape[0], mt["faces"].shape[0]
     H, W = kw["out_hw"]
     ys, xs = torch.meshgrid(torch.arange(H, device=poses.device),
@@ -331,13 +367,35 @@ def compare_with_plain(raster, raster_cuda, torch, mt, poses, K, tfs, kw, tag, s
     tri = ref["tri"].reshape(B, -1).clamp_min(0)
     bins = scratch["bins"]
     words = bins.reshape(B, -1).gather(1, tile_of_pixel[None] * bins.shape[2] + tri // 32)
-    binned = ((words >> (tri % 32).int()) & 1).bool()
-    lost = int((~binned & ref["mask"].reshape(B, -1)).sum().item())
+    binned = ((words >> (tri % 32).int()) & 1).bool().reshape(B, H, W)
+    lost = ~binned & ref["mask"]
+    cand = (a["mask"] != ref["mask"]) | (both & ~same) | lost
+    excused, noise_row = torch.zeros_like(cand), {}
+    if excuse_cap > 0:
+        excused, noise_row = coefficient_noise(raster, torch, mt, poses, K, tfs, kw, a, ref,
+                                               cand)
+    n_excused = int(excused.sum().item())
+    agree = ((a["mask"] == ref["mask"]) | excused).float().mean().item()
+    n_lost = int((lost & ~excused).sum().item())
+    value_flips = int((both & ~same & ~tie & ~excused).sum().item())
+    n_common = max(both.sum().item(), 1)
     row = {**tag, "faces": F, "mask_agree": agree,
-           "covered": both.float().mean().item(), "winners_lost_to_binning": lost,
-           "winner_flips_of_common": 1.0 - same.sum().item() / max(both.sum().item(), 1)}
-    ok = (agree >= 0.999 and bool(same.any()) and row["winner_flips_of_common"] <= 1e-3
-          and lost == 0)
+           "mask_agree_raw": (a["mask"] == ref["mask"]).float().mean().item(),
+           "covered": both.float().mean().item(), "winners_lost_to_binning": n_lost,
+           "winners_lost_to_binning_raw": int(lost.sum().item()),
+           "excused_px": n_excused, "excused_share": n_excused / excused.numel(),
+           "excuse_cap": excuse_cap, **noise_row,
+           "winner_flips_of_common": 1.0 - same.sum().item() / n_common,
+           "winner_flips_with_differing_values_of_common": value_flips / n_common}
+    ok = (agree >= 0.999 and bool(same.any()) and row["excused_share"] <= excuse_cap
+          and row["winner_flips_with_differing_values_of_common"] <= 1e-3 and n_lost == 0
+          and noise_row.get("excused_agree_without_noise_faces", 1.0) >= 0.999)
+    both = both & ~excused
+    if with_bary:
+        d = (a["bary"] - ref["bary"]).abs().amax(dim=-1)
+        row["bary_max_abs_err"] = d[same].max().item()
+        row["bary_zero_on_background"] = bool((a["bary"][~a["mask"]] == 0).all().item())
+        ok = ok and row["bary_max_abs_err"] <= BARY_TOL and row["bary_zero_on_background"]
     for key, tol in COMPARE_TOL:
         if key not in a:
             continue
@@ -358,6 +416,103 @@ def compare_with_plain(raster, raster_cuda, torch, mt, poses, K, tfs, kw, tag, s
     return row
 
 
+def coefficient_noise(raster, torch, mt, poses, K, tfs, kw, a, ref, cand):
+    """Of the disagreeing pixels ``cand`` (B,H,W) of the kernel's render ``a``
+    and the plain one ``ref``, those that float32 coefficient noise explains.
+
+    Both sides test a pixel against a face with the same float32 barycentric
+    coefficients (K1s's equal the plain version's, ``compare_setup``). For a
+    face of ~1e-3 px their constant terms cancel products of ~1e5 px^2 over
+    |det| ~ 1e-8 px^2, so its three barycentrics sum to ~1e5, not 1, and it
+    "holds" pixels far outside itself, each side where it looks (the plain
+    version everywhere, K1r in the face's tiles) and with scores that
+    differ in rounding. A winner is explained when it holds its pixel by its
+    true barycentrics (float64 from the float32 vertices, ``inside_f64``) or
+    by its float32 coefficients evaluated exactly (with the rounding of
+    their float32 evaluation as slack); it is noise when only the latter
+    holds. A pixel is excused when every side that hits it is explained and
+    one of them is noise. A winner that neither test explains — a loose edge
+    test, a face that does not cover the pixel — is never excused. On the
+    excused pixels where the kernel misses or its winner truly holds the
+    pixel, it is held against the plain render of the mesh without the
+    view's noise faces (barycentrics summing to 1 +- NOISE_SUM or worse at
+    the face's centroid): mask equal, depth and xyz within COMPARE_TOL."""
+    excused = torch.zeros_like(cand)
+    row = {"noise_faces_per_view": [], "excused_noise_winners": {"plain": 0, "kernel": 0}}
+    if not cand.any():
+        return excused, row
+    s = raster.face_setup(mt, poses, K, tfs, backface_cull=kw["backface_cull"])
+    coeff = s["coeff"].double()  # (B,F,3,3): rows px / py / 1, a column per corner
+    B = poses.shape[0]
+    b_of = torch.arange(B, device=poses.device)[:, None, None].expand_as(cand)
+    eps = float(torch.finfo(torch.float32).eps)
+
+    def judge(r):
+        """(hit, truly holds, noise) of side ``r`` on the pixels ``cand``."""
+        hit = cand & r["mask"]
+        true_in, noise = torch.zeros_like(cand), torch.zeros_like(cand)
+        true_in[hit] = inside_f64(torch, mt, poses, K, tfs, r["tri"], hit)
+        b, y, x = torch.nonzero(hit, as_tuple=True)
+        c = coeff[b, r["tri"][b, y, x]]  # (P,3,3)
+        terms = torch.stack([c[:, 0] * x.double()[:, None], c[:, 1] * y.double()[:, None],
+                             c[:, 2]], dim=1)  # (P,3 terms,3 corners)
+        slack = 4 * eps * terms.abs().sum(dim=1)
+        noise[hit] = (terms.sum(dim=1) >= -1e-6 - slack).all(dim=-1) & ~true_in[hit]
+        return hit, true_in, noise
+
+    hit_p, true_p, noise_p = judge(ref)
+    hit_k, true_k, noise_k = judge(a)
+    excused = (cand & (noise_p | noise_k) & (~hit_p | true_p | noise_p)
+               & (~hit_k | true_k | noise_k))
+    row["excused_noise_winners"] = {"plain": int((excused & noise_p).sum().item()),
+                                    "kernel": int((excused & noise_k).sum().item())}
+    g = s["tri_xy"].double().mean(dim=-2)  # (B,F,2) centroids
+    total = coeff[..., 0, :].sum(-1) * g[..., 0] + coeff[..., 1, :].sum(-1) * g[..., 1] \
+        + coeff[..., 2, :].sum(-1)
+    noise_face = ((total - 1).abs() > NOISE_SUM) & s["valid"]
+    row["noise_faces_per_view"] = noise_face.sum(dim=1).tolist()
+    check = excused & (~hit_k | true_k)
+    if check.any():
+        tol, agree = dict(COMPARE_TOL), []
+        for b in range(B):
+            if not check[b].any():
+                continue
+            faces = mt["faces"].clone()
+            faces[noise_face[b]] = 0  # zero faces have zero area and never win
+            c = raster.render_crops(dict(mt, faces=faces), poses[b:b + 1], K, tfs[b:b + 1],
+                                    **kw)
+            m, hit = check[b], a["mask"][b][check[b]]
+            dz = (a["depth"][b] - c["depth"][0]).abs()[m]
+            dxyz = (a["xyz"][b] - c["xyz"][0]).abs().amax(dim=-1)[m]
+            agree.append((c["mask"][0][m] == hit)
+                         & (~hit | ((dz <= tol["depth"]) & (dxyz <= tol["xyz"]))))
+        row["excused_agree_without_noise_faces"] = torch.cat(agree).float().mean().item()
+        row["excused_checked_without_noise_faces"] = int(check.sum().item())
+    return excused, row
+
+
+def inside_f64(torch, mt, poses, K, tfs, tri, sel):
+    """For the pixels ``sel`` (B,H,W) bool: does face ``tri`` (B,H,W) hold the
+    pixel when its barycentrics are computed in float64 from the same float32
+    inputs (the plain version's test, w >= -1e-6 on all three)?"""
+    b, y, x = torch.nonzero(sel, as_tuple=True)
+    f = tri[b, y, x].long()
+    v = mt["pos"].double()[mt["faces"].long()[f]]  # (P,3,3)
+    P = poses.double()[b]
+    cam = v @ P[:, :3, :3].transpose(1, 2) + P[:, None, :3, 3]
+    uvw = cam @ K.double().T
+    uv = uvw[..., :2] / uvw[..., 2:3]
+    T = tfs.double()[b]
+    xy = uv @ T[:, :2, :2].transpose(1, 2) + T[:, None, :2, 2]
+    px, py = x.double()[:, None], y.double()[:, None]
+    ex, ey = xy[..., 0] - px, xy[..., 1] - py  # corners relative to the pixel
+    det = ((xy[:, 1, 0] - xy[:, 0, 0]) * (xy[:, 2, 1] - xy[:, 0, 1])
+           - (xy[:, 1, 1] - xy[:, 0, 1]) * (xy[:, 2, 0] - xy[:, 0, 0]))
+    w = torch.stack([ex[:, k1] * ey[:, k2] - ex[:, k2] * ey[:, k1]
+                     for k1, k2 in ((1, 2), (2, 0), (0, 1))], dim=-1) / det[:, None]
+    return (w >= -1e-6).all(dim=-1)
+
+
 def check_deterministic(raster_cuda, torch, mt, poses, K, tfs, name):
     """Two calls on the same inputs must give the same bits: outputs, vertex
     table, bins, and the records of valid faces."""
@@ -374,32 +529,38 @@ def check_deterministic(raster_cuda, torch, mt, poses, K, tfs, name):
             fail(f"{name}: two calls on the same inputs differ in {key}")
 
 
-def time_render(raster, raster_cuda, torch, name, mt, poses, K, tfs, hw, with_normal, cull=True):
+def time_render(raster, raster_cuda, torch, name, mt, poses, K, tfs, hw, with_normal, cull=True,
+                use_light=True, with_tri_bary=False, plain_twice=True):
     """One render call's times beside its bounds: the call (both wrappers, CUDA
     events), each kernel alone (events round its wrapper, and the profiler's
     device time) and the plain versions, in turns plain, kernels, kernels,
-    plain."""
-    kw = dict(out_hw=hw, backface_cull=cull, with_normal=with_normal)
+    plain (the second plain turn left out when ``plain_twice`` is false: a
+    plain call at the bake's shape takes seconds). ``with_tri_bary``: the
+    texture bake's call (winning faces and barycentrics written too)."""
+    kw = dict(out_hw=hw, backface_cull=cull, with_normal=with_normal, use_light=use_light)
+    call_kw = dict(kw, with_tri=with_tri_bary, with_bary=with_tri_bary)
     setup_fn = lambda: raster_cuda.setup_cuda(mt, poses, K, tfs, hw, backface_cull=cull)
     plain_setup_fn = lambda: raster_cuda.tile_bins(
         raster_cuda.make_kernel_inputs(mt, poses, K, tfs, backface_cull=cull)["rec"], *hw)
     scratch = setup_fn()
-    plain_fn = lambda: raster.render_crops(mt, poses, K, tfs, **kw)
-    call_fn = lambda: raster_cuda.render_crops(mt, poses, K, tfs, **kw)
-    raster_fn = lambda: raster_cuda.rasterize_cuda(mt, scratch, hw, True, 0.8, 0.5, with_normal)
+    plain_fn = lambda: raster.render_crops(mt, poses, K, tfs, with_bary=with_tri_bary, **kw)
+    call_fn = lambda: raster_cuda.render_crops(mt, poses, K, tfs, **call_kw)
+    raster_fn = lambda: raster_cuda.rasterize_cuda(mt, scratch, hw, use_light, 0.8, 0.5,
+                                                   with_normal, with_tri_bary, with_tri_bary)
     p1 = event_ms(plain_fn, 1)
     c1 = event_ms(call_fn, 30)
     c2 = event_ms(call_fn, 30)
-    p2 = event_ms(plain_fn, 1)
+    p2 = event_ms(plain_fn, 1) if plain_twice else p1
     bounds = k1_bounds(raster_cuda, mt, poses, K, tfs, scratch, call_fn(), hw=hw)
     dev_ms = device_ms(call_fn, 20, ("setup_kernel", "raster_kernel"))
     return {
         "case": name, "with_normal": with_normal,
         "shape": f"B{poses.shape[0]} x {hw[0]}x{hw[1]} px, {mt['faces'].shape[0]}-face bucket"
                  + (", textured" if "tex" in mt else "") + (", culled, " if cull else ", unculled, ")
-                 + ("with normals" if with_normal else "no normals"),
+                 + ("with normals" if with_normal else "no normals")
+                 + ("" if use_light else ", unlit") + (", tri + bary" if with_tri_bary else ""),
         "ms": min(c1, c2), "ms_runs": [c1, c2],
-        "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+        "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2] if plain_twice else [p1],
         "K1s_ms": event_ms(setup_fn, 50), "K1r_ms": event_ms(raster_fn, 50),
         "K1s_device_ms": dev_ms["setup_kernel"], "K1r_device_ms": dev_ms["raster_kernel"],
         "K1s_plain_ms": event_ms(plain_setup_fn, 3),
@@ -673,13 +834,14 @@ def plain_rasterizer(raster, raster_cuda):
     rasterizer on the card instead of launching K1s and K1r. Only this script
     uses it, to hold a whole path against the same path without the kernels."""
     def plain_call(mt, poses, K, tfs, out_hw, use_light, w_ambient, w_diffuse, light_dir,
-                   backface_cull, with_normal, with_tri=False):
+                   backface_cull, with_normal, with_tri=False, with_bary=False):
         out = raster.render_crops(mt, poses, K, tfs, out_hw=out_hw, use_light=use_light,
                                   with_normal=with_normal, w_ambient=w_ambient,
                                   w_diffuse=w_diffuse, light_dir=light_dir,
-                                  backface_cull=backface_cull)
-        if not with_tri:
-            out.pop("tri")
+                                  backface_cull=backface_cull, with_bary=with_bary)
+        tri = out.pop("tri")
+        if with_tri:
+            out["tri"] = tri.int()
         return out
 
     kernel_call = raster_cuda.render_crops_cuda
@@ -1643,6 +1805,270 @@ def run_train(torch, raster, raster_cuda, scene, smi):
     return total, {"kernels": kernels, "times": timed_rows}
 
 
+FIELD_VIEWS = 60         # run_field's --n-frames default
+FIELD_DIST = 0.5         # metres from the object's centre to each camera
+FIELD_N_STEP = 1000      # FieldConfig().n_step: the only depth the phase may cut (the
+                         # phase is to stay under ~90 s; on an H100 it takes ~75 s)
+FIELD_TIMED_STEPS = 100  # steady-state rays/s after a 10-step warm-up (bench.py:454-466)
+FIELD_HASH_STEPS = (10, 40)  # hash encoder at its defaults: 10 logged, then 40 timed
+FIELD_BAND = 0.015       # SDF probes this share of the diameter off the true surface
+FIELD_MESH_GATE = 0.05   # mean vertex distance to the true surface, share of the diameter
+BAKE_COLOUR_GATE = 0.08  # the JAX package's gate, tests/test_texture_slam.py:65
+FIELD_VIEW = 3           # the training view the bakes are re-rendered at
+
+
+def _boxes_of(mesh):
+    """(lo, hi) corners of the demo L-shape's three boxes (8 vertices each)."""
+    v = mesh.vertices.reshape(-1, 8, 3)
+    return v.min(axis=1), v.max(axis=1)
+
+
+def _inside_boxes(pts, boxes):
+    lo, hi = boxes
+    return ((pts[:, None] > lo[None]) & (pts[:, None] < hi[None])).all(axis=-1).any(axis=-1)
+
+
+def outer_surface_samples(mesh, n, rng):
+    """Points on the L-shape's outer surface (not on faces where two boxes
+    touch) with outward unit normals, area-weighted."""
+    boxes = _boxes_of(mesh)
+    tri = mesh.vertices[mesh.faces]
+    nrm = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    area = 0.5 * np.linalg.norm(nrm, axis=-1)
+    nrm = nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)
+    centre = ((boxes[0] + boxes[1]) / 2)[np.arange(len(tri)) // 12]
+    nrm *= np.sign(((tri.mean(axis=1) - centre) * nrm).sum(-1))[:, None]  # outward
+    f = rng.choice(len(tri), size=n, p=area / area.sum())
+    u, v = rng.random(n), rng.random(n)
+    flip = u + v > 1
+    u[flip], v[flip] = 1 - u[flip], 1 - v[flip]
+    pts = tri[f, 0] + u[:, None] * (tri[f, 1] - tri[f, 0]) + v[:, None] * (tri[f, 2] - tri[f, 0])
+    keep = ~_inside_boxes(pts + 1e-5 * nrm[f], boxes)
+    return pts[keep], nrm[f][keep]
+
+
+def bake_render_calls(texture, n_faces, hw):
+    """Render calls ``bake_texture`` makes for FIELD_VIEWS views of a mesh of
+    ``n_faces`` faces: its views go in calls of ``_views_per_call`` views."""
+    return -(-FIELD_VIEWS // texture._views_per_call(n_faces, hw, texture.BINS_BUDGET))
+
+
+def run_field_phase(torch, demo, raster, raster_cuda, smi):
+    """The neural object field through ``run_field.main`` at ``FieldConfig()``
+    widths (2048 rays x (128 + 128) samples, triplane encoder, 3 mm mesh,
+    1024 texture): the demo's L-shape (position-coded vertex colours) rendered
+    unlit through K1 at 480x640 from 60 icosphere views 0.5 m away, written as
+    a YCBInEOAT tree with the port's PNG writer. Checks the bounds, the loss
+    log, SDF signs off the true surface, the mesh's distance to it, frame 0's
+    pose, K1 at the bake's shape against the plain version (with tri + bary),
+    the bake's launch count, the ground-truth mesh baked and re-rendered; then
+    steady-state rays/s of the triplane field and 50 steps of the hash
+    encoder at its defaults. Runs with cv2, PIL, sklearn and yaml blocked
+    where they are installed."""
+    import tempfile
+
+    from scipy.spatial import cKDTree
+
+    from foundationpose_tpu_torch.apps import run_field
+    from foundationpose_tpu_torch.core import icosphere, meshio
+    from foundationpose_tpu_torch.evalsuite.scenes import HW_DEFAULT, K_DEFAULT
+    from foundationpose_tpu_torch.field import bounds as bounds_mod, texture
+    from foundationpose_tpu_torch.field.runner import FieldConfig, NeRFRunner
+    from foundationpose_tpu_torch.io import png
+
+    t_phase = time.perf_counter()
+    blocked = ("cv2", "PIL", "sklearn", "yaml")
+    present = {n: subprocess.run([sys.executable, "-c", f"import {n}"], capture_output=True,
+                                 timeout=120).returncode == 0 for n in blocked}
+    K, hw = K_DEFAULT, tuple(HW_DEFAULT)
+    mesh = demo.make_l_shape()
+    v = mesh.vertices
+    mesh.vertex_colors = ((v - v.min(0)) / np.ptp(v, axis=0) * 190 + 40).astype(np.uint8)
+    diameter = centred_diameter(meshio, mesh)
+    centre = mesh.bounds.mean(axis=0)
+    cams = icosphere.sample_views_icosphere(n_views=FIELD_VIEWS)[:FIELD_VIEWS]
+    cams[:, :3, 3] = cams[:, :3, 3] * FIELD_DIST + centre  # cam_in_ob, looking at the centre
+    ob_in_cams = np.linalg.inv(cams)
+    mt = raster.make_mesh_tensors(mesh, device="cuda")
+    frames = raster_cuda.render_full_frame(mt, ob_in_cams.astype(np.float32), K, hw,
+                                           use_light=False)
+    images = (frames["rgb"].cpu().numpy() * 255).astype(np.uint8)
+    depth_mm = np.rint(frames["depth"].cpu().numpy() * 1000).astype(np.uint16)
+    masks = frames["mask"].cpu().numpy()
+    rng = np.random.default_rng(0)
+    surf, surf_n = outer_surface_samples(mesh, 400_000, rng)
+    tree = cKDTree(surf)
+    probe = rng.choice(len(surf), 4000, replace=False)
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            (without_modules(blocked) if any(present.values()) else contextlib.nullcontext()):
+        video = os.path.join(tmp, "field_lshape")
+        for sub in ("rgb", "depth", "masks", "annotated_poses"):
+            os.makedirs(os.path.join(video, sub))
+        np.savetxt(os.path.join(video, "cam_K.txt"), K)
+        for i in range(FIELD_VIEWS):
+            png.write_png(os.path.join(video, "rgb", f"{i:04d}.png"), images[i])
+            png.write_png(os.path.join(video, "depth", f"{i:04d}.png"), depth_mm[i])
+            png.write_png(os.path.join(video, "masks", f"{i:04d}.png"),
+                          masks[i].astype(np.uint8) * 255)
+            np.savetxt(os.path.join(video, "annotated_poses", f"{i:04d}.txt"), ob_in_cams[i])
+        out_dir = os.path.join(tmp, "out")
+        reset_launches(raster_cuda)
+        (mesh_r, opt_poses, runner), main_ms = timed(torch, lambda: run_field.main(
+            ["--data-dir", video, "--save-dir", out_dir, "--n-step", str(FIELD_N_STEP),
+             "--device", "cuda"]))
+        bake_calls = bake_render_calls(texture, len(mesh_r.faces), hw)
+        bake_launches = expect_launches(raster_cuda, dict.fromkeys(raster_cuda.LAUNCHES, 0),
+                                        bake_calls, "run_field (texture bake render calls)")
+        PER_CALL["run_field: texture bake (one per render call)"] = bake_launches
+        artifacts = sorted(os.listdir(out_dir))
+    cfg = runner.cfg
+    if cfg != FieldConfig(n_step=FIELD_N_STEP):
+        fail(f"field: run_field did not train at FieldConfig() widths: {cfg}")
+    if artifacts != ["field_latest.ckpt", "mesh_real_world.mtl", "mesh_real_world.obj",
+                     "mesh_real_world.png", "optimized_poses.txt"]:
+        fail(f"field: run_field left {artifacts}")
+
+    # ---- training: the logged losses
+    log = [(step, aux["loss"]) for step, aux in runner.log]
+    losses = [l for _, l in log]
+    if not np.isfinite(losses).all() or not losses[-1] < 0.5 * losses[0]:
+        fail(f"field: losses not finite and falling to below half: {log}")
+
+    # ---- SDF signs off the true surface (normalised frame of the field)
+    band = FIELD_BAND * diameter
+    to_n = lambda p: (p + runner.translation[None]) * runner.sc_factor  # noqa: E731
+    sdf_out = runner.sdf_fn(to_n(surf[probe] + band * surf_n[probe])).cpu().numpy()
+    sdf_in = runner.sdf_fn(to_n(surf[probe] - band * surf_n[probe])).cpu().numpy()
+    sdf_row = {"probes": len(probe), "band_mm": band * 1000,
+               "outside_positive": float((sdf_out > 0).mean()),
+               "inside_negative": float((sdf_in < 0).mean())}
+    if sdf_row["outside_positive"] < 0.95 or sdf_row["inside_negative"] < 0.75:
+        FAILURES.append(f"field: SDF signs {sdf_row} (gates 0.95 outside, 0.75 inside)")
+
+    # ---- the mesh, in metres, against the true outer surface; frame 0's pose
+    dist = tree.query(mesh_r.vertices)[0]
+    mesh_row = {"faces": int(len(mesh_r.faces)), "vertices": int(len(mesh_r.vertices)),
+                "mean_dist_mm": float(dist.mean() * 1000),
+                "mean_dist_of_diameter": float(dist.mean() / diameter),
+                "p95_dist_mm": float(np.percentile(dist, 95) * 1000),
+                "diameter_mm": diameter * 1000,
+                "texture": list(mesh_r.texture.shape) if mesh_r.texture is not None else None}
+    if not len(mesh_r.faces) or mesh_row["mean_dist_of_diameter"] > FIELD_MESH_GATE:
+        FAILURES.append(f"field: mesh {mesh_row} (gate {FIELD_MESH_GATE:.0%} of the diameter)")
+    pose0_err = float(np.abs(opt_poses[0] - cams[0]).max())
+    if pose0_err > 1e-4:
+        fail(f"field: frame 0's optimised pose moved by {pose0_err}")
+    pose_drift = np.linalg.norm(opt_poses[:, :3, 3] - cams[:, :3, 3], axis=-1)
+
+    # ---- K1 at the bake's shape against the plain version: the unwrapped
+    # reconstructed mesh, the first render call's views, unlit, unculled,
+    # tri + bary, no normals
+    un = mesh_r.copy()  # the bake's unwrapped mesh, rendered without its texture
+    un.texture = None
+    mt_un = raster.make_mesh_tensors(un, device="cuda")
+    B = min(FIELD_VIEWS, texture._views_per_call(len(un.faces), hw, texture.BINS_BUDGET))
+    bposes = torch.tensor(np.linalg.inv(opt_poses[:B]), dtype=torch.float32, device="cuda")
+    Kt = torch.tensor(K, dtype=torch.float32, device="cuda")
+    eye = torch.eye(3, device="cuda").expand(B, 3, 3).contiguous()
+    tag = {"case": f"bake {len(un.faces)}-face reconstructed mesh", "batch": f"B{B}",
+           "cull": False}
+    srow, scratch = compare_setup(raster, raster_cuda, torch, mt_un, bposes, Kt, eye, False, tag,
+                                  hw)
+    kw = dict(out_hw=hw, backface_cull=False, with_normal=False, use_light=False, with_bary=True)
+    krow = compare_with_plain(raster, raster_cuda, torch, mt_un, bposes, Kt, eye, kw,
+                              {**tag, "with_normal": False}, scratch, excuse_cap=EXCUSE_CAP)
+    bake_time = time_render(raster, raster_cuda, torch, "texture bake", mt_un, bposes, Kt, eye,
+                            hw, False, cull=False, use_light=False, with_tri_bary=True,
+                            plain_twice=False)
+
+    # ---- bakes re-rendered at a training view: the true mesh (gated), the
+    # reconstruction (printed)
+    def colour_err(textured, pose):
+        a = raster_cuda.render_full_frame(raster.make_mesh_tensors(textured, device="cuda"),
+                                          pose[None].astype(np.float32), K, hw, use_light=False)
+        m = a["mask"][0].cpu().numpy() & masks[FIELD_VIEW]
+        ref = images[FIELD_VIEW][m] / 255.0
+        return float(np.abs(a["rgb"][0].cpu().numpy()[m] - ref).mean()), int(m.sum())
+
+    gt_bake, gt_bake_ms, gt_counts = drive_counted(
+        raster_cuda, torch, lambda: texture.bake_texture(mesh, images, masks, cams, K,
+                                                         tex_res=1024, device="cuda"),
+        bake_render_calls(texture, len(mesh.faces), hw),
+        "texture bake of the true mesh (one launch per render call)")
+    gt_err, gt_px = colour_err(gt_bake, ob_in_cams[FIELD_VIEW])
+    rec_err, rec_px = colour_err(mesh_r, np.linalg.inv(opt_poses[FIELD_VIEW]))
+    if not gt_err < BAKE_COLOUR_GATE:
+        FAILURES.append(f"field: the true mesh's bake re-rendered off by {gt_err}")
+
+    # ---- steady-state rays/s of the trained triplane field
+    runner.train(n_step=10, log_every=10**9)
+    t0 = time.perf_counter()
+    runner.train(n_step=FIELD_TIMED_STEPS, log_every=10**9)  # ends in a host read
+    tri_rays_s = FIELD_TIMED_STEPS * cfg.n_rand / (time.perf_counter() - t0)
+
+    # ---- the hash encoder at its defaults, the same rays (the frames as the
+    # reader gives them back: lossless PNGs, millimetre depth)
+    depths = (depth_mm.astype(np.float64) / 1e3).astype(np.float32)
+    rmasks = masks.astype(np.uint8)
+    poses_in = np.linalg.inv(ob_in_cams)  # as run_field inverts the annotated poses
+    translation, sc_factor, cluster = bounds_mod.compute_scene_bounds(depths, rmasks, K, poses_in)
+    rgbs_n, depths_n, masks_n, poses_n = bounds_mod.preprocess_data(
+        images.astype(np.float32), depths, rmasks, poses_in, sc_factor, translation)
+    hcfg = FieldConfig(encoder="hash")
+    hr = NeRFRunner(hcfg, rgbs_n, depths_n, masks_n, poses_n, K,
+                    (cluster + translation) * sc_factor, sc_factor, translation, device="cuda")
+    if not torch.equal(hr.rays, runner.rays):
+        fail("field: the hash runner's rays differ from run_field's")
+    table = hr.field.grid.table
+    hr.train(n_step=FIELD_HASH_STEPS[0], log_every=1)
+    t0 = time.perf_counter()
+    h_last = hr.train(n_step=FIELD_HASH_STEPS[1], log_every=10**9)
+    hash_rays_s = FIELD_HASH_STEPS[1] * hcfg.n_rand / (time.perf_counter() - t0)
+    h_losses = [aux["loss"] for _, aux in hr.log] + [h_last]
+    if not np.isfinite(h_losses).all() or not h_last < h_losses[0]:
+        fail(f"field: hash encoder losses not finite and falling: {h_losses}")
+    hash_row = {"steps": sum(FIELD_HASH_STEPS), "losses_first_10_and_last": h_losses,
+                "rays_per_s": hash_rays_s, "levels": hr.field.grid.resolutions,
+                "table_entries": int(table.shape[0]), "table_mib": table.numel() * 4 / 2**20,
+                "dense_levels": sum((R + 1) ** 3 <= t for R, t in
+                                    zip(hr.field.grid.resolutions, hr.field.grid.table_sizes))}
+    del hr
+
+    say("field", n_step=FIELD_N_STEP, n_step_cut_from=FieldConfig().n_step,
+        reduced=[] if FIELD_N_STEP == FieldConfig().n_step else
+        [f"n_step {FieldConfig().n_step} -> {FIELD_N_STEP}"],
+        frames=FIELD_VIEWS, hw=list(hw), distance_m=FIELD_DIST, rays=int(runner.rays.shape[0]),
+        config={"n_rand": cfg.n_rand, "samples": [cfg.n_samples, cfg.n_samples_around_depth],
+                "encoder": cfg.encoder, "triplane": list(cfg.triplane_resolutions),
+                "channels": cfg.triplane_channels, "freqs": cfg.triplane_freqs,
+                "mesh_resolution_m": cfg.mesh_resolution, "tex_res": 1024},
+        blocked_modules=[n for n, p in present.items() if p],
+        bounds={"sc_factor": runner.sc_factor, "translation": runner.translation.tolist(),
+                "sklearn_used": False},
+        run_field_ms=main_ms, loss_log=log, triplane_rays_per_s=tri_rays_s,
+        triplane_timed_steps=FIELD_TIMED_STEPS, sdf_signs=sdf_row, mesh=mesh_row,
+        pose0_max_abs_err=pose0_err, pose_drift_mm={"max": float(pose_drift.max() * 1000),
+                                                    "mean": float(pose_drift.mean() * 1000)},
+        bake={"render_calls": bake_calls, "launches": bake_launches, "views_per_call": B,
+              "K1s_vs_plain": srow, "K1r_vs_plain": krow, "times": bake_time,
+              "true_mesh_colour_err": gt_err, "true_mesh_common_px": gt_px,
+              "true_mesh_bake_ms": gt_bake_ms, "true_mesh_launches": gt_counts,
+              "reconstruction_colour_err": rec_err, "reconstruction_common_px": rec_px},
+        hash=hash_row, phase_s=time.perf_counter() - t_phase,
+        gate="losses finite, the last logged below half the first; SDF > 0 on >= 95 % of "
+             f"points {FIELD_BAND:.1%} of the diameter outside the true surface, < 0 on >= 75 % "
+             f"inside; mesh vertices within {FIELD_MESH_GATE:.0%} of the diameter of the true "
+             "surface on average; frame 0's pose within 1e-4; K1 at the bake's shape at the "
+             "kernel gates (bary 1e-5); launches = the bake's render calls; the true mesh's "
+             f"bake re-rendered within {BAKE_COLOUR_GATE} mean colour error; hash losses "
+             "finite and falling",
+        card=smi)
+    return ({"K1s": bake_launches["K1s"] + gt_counts["K1s"],
+             "K1r": bake_launches["K1r"] + gt_counts["K1r"]},
+            {"setup": srow, "raster": krow, "time": bake_time})
+
+
 def main():
     import torch
 
@@ -1769,6 +2195,8 @@ def main():
     by_path.update(io_paths)
     by_path["training stack (corpus trainers, resume, serve, harness fallback)"], train_k = \
         run_train(torch, raster, raster_cuda, scene, smi)
+    by_path["run_field + true-mesh texture bake"], field_k = run_field_phase(
+        torch, demo, raster, raster_cuda, smi)
     all_launches = {}
     for counts in by_path.values():
         add_counts(all_launches, counts)
@@ -1792,6 +2220,12 @@ def main():
                   | {"K1s_bound_ms": c["K1s_bound"]["bound_ms"],
                      "K1r_bound_ms": c["K1r_bound"]["bound_ms"]}
                   for c in train_k["times"]]
+    bake = field_k["time"]
+    bake_row = {k: bake[k] for k in ("case", "shape", "ms", "K1s_ms", "K1r_ms", "K1s_device_ms",
+                                     "K1r_device_ms", "plain_ms", "K1s_plain_ms", "bound_ms",
+                                     "bound_by", "pixel_face_tests")} \
+        | {"K1s_bound_ms": bake["K1s_bound"]["bound_ms"],
+           "K1r_bound_ms": bake["K1r_bound"]["bound_ms"]}
     kernels = [{
         "name": "K1s face setup and tile binning",
         "source": sources["K1s"],
@@ -1801,10 +2235,12 @@ def main():
         "launches_per_call": {k: v["K1s"] for k, v in PER_CALL.items()},
         "max_abs_err": max(k1["setup_worst"]["vtab_max_abs_err"],
                            suite_k["setup_worst"]["vtab_max_abs_err"],
-                           train_k["kernels"]["setup_worst"]["vtab_max_abs_err"]),
+                           train_k["kernels"]["setup_worst"]["vtab_max_abs_err"],
+                           field_k["setup"]["vtab_max_abs_err"]),
         "worst": k1["setup_worst"], "worst_suite_full_frames": suite_k["setup_worst"],
         "worst_training_shapes": train_k["kernels"]["setup_worst"],
         "training_shapes": train_rows,
+        "bake_shape": bake_row, "bake_shape_vs_plain": field_k["setup"],
         "tolerance": SETUP_GATE,
         "ms": main_row["K1s_ms"], "device_ms": main_row["K1s_device_ms"],
         "plain_ms": main_row["K1s_plain_ms"],
@@ -1818,11 +2254,14 @@ def main():
         "launches_by_path": {k: v["K1r"] for k, v in by_path.items()},
         "launches_per_call": {k: v["K1r"] for k, v in PER_CALL.items()},
         "max_abs_err": max(*k1["worst_abs_err"].values(), *suite_k["worst_abs_err"].values(),
-                           *train_k["kernels"]["worst_abs_err"].values()),
+                           *train_k["kernels"]["worst_abs_err"].values(),
+                           *(field_k["raster"][f"{k}_max_abs_err"] for k in ("depth", "xyz", "rgb")),
+                           field_k["raster"]["bary_max_abs_err"]),
         "worst_abs_err": k1["worst_abs_err"],
         "worst_abs_err_training_shapes": train_k["kernels"]["worst_abs_err"],
         "max_winner_flips_training_shapes": train_k["kernels"]["max_winner_flips_of_common"],
         "training_shapes": train_rows,
+        "bake_shape": bake_row, "bake_shape_vs_plain": field_k["raster"],
         "worst_abs_err_suite_full_frames": suite_k["worst_abs_err"],
         "max_winner_flips_suite_full_frames": suite_k["max_winner_flips_of_common"],
         "worst_abs_err_incl_winner_flips": k1["worst_abs_err_incl_winner_flips"],

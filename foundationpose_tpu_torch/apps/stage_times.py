@@ -22,7 +22,15 @@ K1r, and the rest — pose draws, augmentation, normalisation), forward (net
 and loss), backward and the optimiser, each between two synchronisations,
 beside the unwrapped step rate and the device's busy share.
 
-Usage: python -m foundationpose_tpu_torch.apps.stage_times [--mode geometric] [--funnel] [--train]
+``--field [--encoder hash]`` times one full-width step of the neural object
+field (``FieldConfig()``: 2048 rays x (128 + 128) samples) on a synthetic
+sphere scene: the ray draw and gather, sampling, the encoder's forward, the
+MLP's forward, the rest of the loss, the backward, and each of the two
+optimisers, beside the unwrapped step rate (rays/s), the device's busy share
+and the kernel count of one step from the profiler.
+
+Usage: python -m foundationpose_tpu_torch.apps.stage_times [--mode geometric] [--funnel]
+       [--train] [--field [--encoder hash]]
 """
 
 from __future__ import annotations
@@ -198,6 +206,88 @@ def train_stage_times(card, n_meshes=8, steps=20, warm=5, input_size=160, device
         }), flush=True)
 
 
+def field_scene(n_frames=4, hw=(120, 160)):
+    """The field bench's scene (bench.py:431-452): a 0.5 m sphere 1.2 m in
+    front of ``n_frames`` identical cameras. Returns NeRFRunner's inputs."""
+    import numpy as np
+
+    H, W = hw
+    K = np.array([[150.0, 0, W / 2], [0, 150.0, H / 2], [0, 0, 1]])
+    us, vs = np.meshgrid(np.arange(W), np.arange(H))
+    dirs = np.stack([(us - K[0, 2]) / K[0, 0], (vs - K[1, 2]) / K[1, 1], np.ones_like(us)], -1)
+    o = np.array([0.0, 0.0, -1.2])
+    a, b = (dirs * dirs).sum(-1), 2 * (dirs * o).sum(-1)
+    disc = b * b - 4 * a * ((o * o).sum() - 0.5**2)
+    hit = disc > 0
+    t = (-b - np.sqrt(np.maximum(disc, 0))) / (2 * a)
+    depth = np.where(hit & (t > 0), t, 0).astype(np.float32)
+    rgbs = np.tile((0.5 * hit[..., None]).astype(np.float32)[None], (n_frames, 1, 1, 3))
+    depths = np.tile(depth[None], (n_frames, 1, 1))
+    masks = np.tile(hit[None].astype(np.uint8), (n_frames, 1, 1))
+    poses = np.tile(np.eye(4)[None], (n_frames, 1, 1))
+    poses[:, :3, 3] = o
+    occ = np.random.default_rng(0).uniform(-0.6, 0.6, (2048, 3))
+    return rgbs, depths, masks, poses, K, occ, 1.0, np.zeros(3)
+
+
+def field_stage_times(card, encoder="triplane", steps=20, warm=10, device="cuda"):
+    """Stage times of one field train step at ``FieldConfig()`` widths."""
+    from foundationpose_tpu_torch.field import runner as runner_mod
+    from foundationpose_tpu_torch.field.runner import FieldConfig, NeRFRunner
+
+    cfg = FieldConfig(encoder=encoder)
+    r = NeRFRunner(cfg, *field_scene(), device=device)
+    f = r.field
+
+    def step(timer=None, stages=None):
+        def stage(label, fn):
+            if timer is None:
+                return fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            timer[label] = timer.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+
+        f.zero_grad(set_to_none=True)
+        draws = stage("ray draw + gather", r.draw)
+        batch = stage("ray draw + gather", lambda: r.rays[draws["ids"]])
+        loss, _ = stage("forward: the rest of the loss", lambda: r.loss_fn(batch, draws))
+        stage("backward", loss.backward)
+        stage("optimiser: field (Adam, eps 1e-15)", r.opt.step)
+        stage("optimiser: pose array", r.opt_pose.step)
+        return loss.detach()
+
+    for _ in range(warm):
+        step()
+    unwrapped = wall_ms(lambda: [step() for _ in range(steps)])
+    t = StageTimer()
+    undo = [t.wrap(runner_mod.sampling, "sample_rays", "sampling (ray/box, stratified, occupancy)"),
+            t.wrap(f.grid, "forward", f"encoder forward ({encoder})"),
+            t.wrap(f.mlp, "forward", "MLP forward (sigma + colour)")]
+    timer = {}
+    try:
+        wrapped = wall_ms(lambda: [step(timer) for _ in range(steps)])
+    finally:
+        for u in undo:
+            u()
+    inner = sum(t.ms.values())
+    rows = {k: v / steps for k, v in t.ms.items()}
+    for k, v in timer.items():
+        rows[k] = (v - inner if k.startswith("forward") else v) / steps
+    print(json.dumps({
+        "call": f"field train step ({encoder}, {cfg.n_rand} rays x "
+                f"({cfg.n_samples} + {cfg.n_samples_around_depth}) samples, float32)",
+        "card": card, "steps": steps, "warmup_steps": warm,
+        "ms_per_step_unwrapped": unwrapped / steps,
+        "rays_per_s_unwrapped": steps * cfg.n_rand / (unwrapped / 1e3),
+        "ms_per_step_with_stage_syncs": wrapped / steps,
+        "stages_ms_per_step": dict(sorted(rows.items(), key=lambda kv: -kv[1])),
+        "profiled_step": busy_share(step),
+    }), flush=True)
+
+
 def main(argv=None):
     from foundationpose_tpu_torch.apps import demo_synthetic as demo
     from foundationpose_tpu_torch.engine.estimator import EstimatorConfig
@@ -208,7 +298,19 @@ def main(argv=None):
                    help="funnel_top_k=64, funnel_coarse_iterations=1, funnel_coarse_size=112")
     p.add_argument("--train", action="store_true",
                    help="time a training step of each net instead of the serving calls")
+    p.add_argument("--field", action="store_true",
+                   help="time a neural-object-field train step at FieldConfig() widths")
+    p.add_argument("--encoder", choices=["triplane", "hash"], default="triplane",
+                   help="the field's positional encoder (with --field)")
     opts = p.parse_args(argv)
+    if opts.field:
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True).stdout.strip()
+        print(json.dumps({"card": card, "torch": torch.__version__, "field": opts.encoder}),
+              flush=True)
+        field_stage_times(card, opts.encoder)
+        return
     if opts.train:
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

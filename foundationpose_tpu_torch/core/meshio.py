@@ -10,8 +10,8 @@ implementation: OBJ (+MTL texture) and PLY (ascii / binary_little_endian,
 BOP-style per-vertex texture coords) readers and writers, vertex normals,
 the SVD diameter, and vertex-clustering decimation used to bound triangle
 counts for the rasterizer. Textures are read and written through the port's
-PNG codec (``io/png.py``); other image formats need PIL. (Voxel downsampling
-is not needed by the ported paths yet.)
+PNG codec (``io/png.py``); other image formats need PIL. ``voxel_downsample``
+serves the neural field's scene bounds (``field/bounds.py``).
 """
 
 from __future__ import annotations
@@ -113,6 +113,24 @@ def compute_mesh_diameter(mesh=None, model_pts=None, n_sample=10000, rng=None):
         pts = pts[rng.choice(len(pts), size=n_sample, replace=False)]
     d = np.linalg.norm(pts[None] - pts[:, None], axis=-1)
     return float(d.max())
+
+
+def voxel_downsample(points, voxel_size, normals=None):
+    """Average points (and normals) per occupied voxel (replaces open3d's
+    voxel_down_sample at estimater.py:60)."""
+    pts = np.asarray(points, dtype=np.float64)
+    keys = np.floor(pts / voxel_size).astype(np.int64)
+    _, inv, counts = np.unique(keys, axis=0, return_inverse=True, return_counts=True)
+    inv = inv.reshape(-1)
+    out = np.zeros((len(counts), 3))
+    np.add.at(out, inv, pts)
+    out /= counts[:, None]
+    if normals is not None:
+        nrm = np.zeros((len(counts), 3))
+        np.add.at(nrm, inv, np.asarray(normals, dtype=np.float64))
+        nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-12)
+        return out, nrm
+    return out
 
 
 def decimate_vertex_clustering(mesh: Mesh, max_faces: int) -> Mesh:

@@ -38,7 +38,8 @@
 //         with v already flipped to image rows; tex (Ht, Wt, 3) f32 in [0,1].
 // Outputs: rgb (B,H,W,3), xyz (B,H,W,3), depth (B,H,W), mask (B,H,W) one byte
 //   0/1, normal (B,H,W,3) when with_normal, tri (B,H,W) i32 winning face id
-//   (-1 = background) when asked for.
+//   (-1 = background) when asked for, bary (B,H,W,3) the winner's normalised
+//   perspective-correct barycentrics (0 on background) when asked for.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,6 +68,10 @@ static __device__ __forceinline__ float shade(float c, float dif, int use_light,
     return fminf(fmaxf(c, 0.f), 1.f);
 }
 
+// WITH_BARY: the texture bake's variant, which also writes the barycentrics;
+// every other call runs the instantiation without them, whose code is that of
+// the kernel before the option existed.
+template <bool WITH_BARY>
 __global__ void __launch_bounds__(NTHREADS)
 raster_kernel(const float4* __restrict__ rec, const uint32_t* __restrict__ bins,
               const float4* __restrict__ vtab, const int* __restrict__ faces,
@@ -75,7 +80,8 @@ raster_kernel(const float4* __restrict__ rec, const uint32_t* __restrict__ bins,
               int use_light, int with_normal, float w_ambient, float w_diffuse,
               float* __restrict__ rgb, float* __restrict__ xyz,
               float* __restrict__ depth, uint8_t* __restrict__ mask,
-              float* __restrict__ normal, int* __restrict__ tri)
+              float* __restrict__ normal, int* __restrict__ tri,
+              float* __restrict__ bary)
 {
     // survivors' records; reused as the staging area of the tile's outputs
     __shared__ float4 s_rec[3 * CHUNK];
@@ -172,6 +178,7 @@ raster_kernel(const float4* __restrict__ rec, const uint32_t* __restrict__ bins,
     // ---- this pixel's values
     const bool hit = best > 0.0f;
     float o_rgb[3] = {0.f, 0.f, 0.f}, o_xyz[3] = {0.f, 0.f, 0.f}, o_nrm[3] = {0.f, 0.f, 0.f};
+    float o_bary[3] = {0.f, 0.f, 0.f};
     if (hit) {
         const float4 A = rec_b[(size_t)bestf * 4 + 0];
         const float4 Bq = rec_b[(size_t)bestf * 4 + 1];
@@ -192,6 +199,7 @@ raster_kernel(const float4* __restrict__ rec, const uint32_t* __restrict__ bins,
         float u2 = w2 / fmaxf(p2.z, ZNEAR);
         const float usum = fmaxf(ADD(ADD(u0, u1), u2), 1e-12f);
         u0 /= usum; u1 /= usum; u2 /= usum;
+        o_bary[0] = u0; o_bary[1] = u1; o_bary[2] = u2;
 
         o_xyz[0] = mix3(u0, p0.x, u1, p1.x, u2, p2.x);
         o_xyz[1] = mix3(u0, p0.y, u1, p1.y, u2, p2.y);
@@ -242,6 +250,12 @@ raster_kernel(const float4* __restrict__ rec, const uint32_t* __restrict__ bins,
     }
 
     // ---- write the tile
+    if (WITH_BARY && px_i < W && py_i < H) {
+        // optional (texture baking): each thread writes its own pixel
+        const size_t p = ((size_t)b * H + py_i) * W + px_i;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) bary[p * 3 + c] = o_bary[c];
+    }
     const int tx0 = px_i - (t & (TILE - 1)), ty0 = py_i - (t / TILE);
     if ((W & 3) != 0 || tx0 + TILE > W || ty0 + TILE > H) {
         // ragged tile, or rows that are not 16-byte aligned: pixel by pixel
@@ -298,23 +312,25 @@ raster_kernel(const float4* __restrict__ rec, const uint32_t* __restrict__ bins,
 
 // Plain C interface for ctypes. Launches on the given stream, does not
 // synchronise, allocates nothing. Returns cudaGetLastError() as an int.
-// ``tex`` is null for a mesh with vertex colours.
+// ``tex`` is null for a mesh with vertex colours; ``normal``, ``tri`` and
+// ``bary`` are null when not asked for.
 extern "C" int fp_raster_launch(
     const void* rec, const void* bins, const void* vtab, const void* faces,
     const void* vcol, const void* tex,
     int B, int F, int V, int H, int W, int Ht, int Wt,
     int use_light, int with_normal, float w_ambient, float w_diffuse,
     void* rgb, void* xyz, void* depth, void* mask, void* normal, void* tri,
-    void* stream)
+    void* bary, void* stream)
 {
     const int tiles_x = (W + TILE - 1) / TILE;
     const int tiles_y = (H + TILE - 1) / TILE;
     dim3 grid((unsigned)(tiles_x * tiles_y), (unsigned)B, 1);
-    raster_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+    auto kernel = bary != nullptr ? raster_kernel<true> : raster_kernel<false>;
+    kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
         (const float4*)rec, (const uint32_t*)bins, (const float4*)vtab,
         (const int*)faces, (const float*)vcol, (const float*)tex,
         F, V, H, W, tiles_x, (F + 31) / 32, Ht, Wt, use_light, with_normal,
         w_ambient, w_diffuse, (float*)rgb, (float*)xyz, (float*)depth,
-        (uint8_t*)mask, (float*)normal, (int*)tri);
+        (uint8_t*)mask, (float*)normal, (int*)tri, (float*)bary);
     return (int)cudaGetLastError();
 }

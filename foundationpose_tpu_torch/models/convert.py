@@ -9,6 +9,8 @@ conv kernels HWIO -> OIHW, dense kernels (in,out) -> (out,in), norm
 ``state_dict_to_flax_params`` is the way back (what the port's trainers
 write), and ``flax_init`` draws a net's parameters from flax's default
 initialisers, the distribution the JAX package's training recipes start from.
+``field_params_to_state_dict`` / ``state_dict_to_field_params`` do the same
+for the neural object field's nested parameter tree.
 """
 
 from __future__ import annotations
@@ -110,3 +112,65 @@ def flax_init(net: torch.nn.Module, seed: int) -> torch.nn.Module:
             module.weight.fill_(1.0)
             module.bias.zero_()
     return net
+
+
+# ---------------------------------------------------------------------------
+# the neural object field (field/nerf.py::ObjectField)
+
+
+def field_params_to_state_dict(tree: dict, field: torch.nn.Module) -> dict:
+    """The JAX field's parameter tree (``jax.device_get(runner.params)``:
+    nested dicts of arrays, with or without the top-level ``"params"``) ->
+    a float32 ``state_dict`` for the port's ``ObjectField``: ``grid/planes_R``
+    and ``grid/table`` as they are, ``mlp/sigma_l`` / ``mlp/color_l`` dense
+    kernels (in,out) -> (out,in), ``feature_array`` and ``pose_array``.
+    Raises on a missing, unexpected or wrong-shaped entry."""
+    tree = tree.get("params", tree)
+    flat = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + [k])
+            else:
+                flat["/".join(path + [k])] = v
+
+    walk(tree, [])
+    want = field.state_dict()
+    out = {}
+    for key, arr in flat.items():
+        a = np.asarray(arr, dtype=np.float32)
+        parts = key.split("/")
+        if parts[-1] in ("kernel", "bias"):
+            name = ".".join(parts[:-1] + ["weight" if parts[-1] == "kernel" else "bias"])
+            if parts[-1] == "kernel":
+                a = a.T
+        else:
+            name = ".".join(parts)
+        if name not in want:
+            raise KeyError(f"unexpected field parameter {key} (-> {name})")
+        if tuple(want[name].shape) != a.shape:
+            raise ValueError(f"{key}: shape {a.shape} != {tuple(want[name].shape)}")
+        out[name] = torch.tensor(a)
+    missing = sorted(set(want) - set(out))
+    if missing:
+        raise KeyError(f"missing field parameters: {missing}")
+    return out
+
+
+def state_dict_to_field_params(field: torch.nn.Module) -> dict:
+    """Inverse of :func:`field_params_to_state_dict`: the port's field as the
+    JAX package's ``{"params": {...}}`` tree of float32 arrays (exact)."""
+    tree = {}
+    for name, t in field.state_dict().items():
+        a = t.detach().cpu().float().numpy()
+        parts = name.split(".")
+        if parts[0] == "mlp":
+            parts[-1] = "kernel" if parts[-1] == "weight" else "bias"
+            if parts[-1] == "kernel":
+                a = a.T
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.ascontiguousarray(a)
+    return {"params": tree}

@@ -234,7 +234,7 @@ def _interp(pw, attr_v, vids):
 
 def _render_chunk(mesh_tensors, poses, K, crop_tfs, H, W, use_light, with_normal,
                   w_ambient, w_diffuse, light_dir, backface_cull, face_chunk,
-                  face_ok=None):
+                  face_ok=None, with_bary=False):
     """One chunk of poses. ``face_ok`` (B,P,F) bool, when given, limits each
     pixel to the faces it marks — how the tests render a tile from only the
     faces binned to it."""
@@ -301,6 +301,9 @@ def _render_chunk(mesh_tensors, poses, K, crop_tfs, H, W, use_light, with_normal
         "mask": hit.reshape(B, H, W),
         "tri": torch.where(hit, best_tri, torch.full_like(best_tri, -1)).reshape(B, H, W),
     }
+    if with_bary:
+        # perspective-correct barycentrics of the winning face (texture baking)
+        out["bary"] = (pw * hit_f).reshape(B, H, W, 3)
     if with_normal:
         n_pix = _interp(pw, s["n_cam"], vids)
         n_pix = n_pix / torch.linalg.norm(n_pix, dim=-1, keepdim=True).clamp_min(1e-12)
@@ -335,6 +338,7 @@ def render_crops(
     backface_cull=False,
     face_chunk=256,
     pose_chunk=8,
+    with_bary=False,
 ):
     """Render a batch of pose hypotheses into crop windows (plain version).
 
@@ -348,7 +352,9 @@ def render_crops(
 
     Returns dict: rgb (B,H,W,3) in [0,1], depth (B,H,W), xyz (B,H,W,3)
     cam-space map, mask (B,H,W) bool, tri (B,H,W) winning face id (-1 =
-    background), and normal (B,H,W,3) cam-space when ``with_normal``.
+    background), normal (B,H,W,3) cam-space when ``with_normal``, and bary
+    (B,H,W,3) — the winning face's perspective-correct barycentrics, 0 on
+    background — when ``with_bary``.
     """
     H, W = out_hw
     poses, K, crop_tfs = prepare_render_args(mesh_tensors, poses, K, crop_tfs)
@@ -356,7 +362,7 @@ def render_crops(
         _render_chunk(
             mesh_tensors, poses[i : i + pose_chunk], K, crop_tfs[i : i + pose_chunk],
             H, W, use_light, with_normal, w_ambient, w_diffuse, light_dir,
-            backface_cull, face_chunk,
+            backface_cull, face_chunk, with_bary=with_bary,
         )
         for i in range(0, poses.shape[0], pose_chunk)
     ]

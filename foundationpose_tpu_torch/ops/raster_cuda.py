@@ -117,7 +117,7 @@ def build():
     setup = ctypes.CDLL(jobs["K1s"][1]).fp_raster_setup_launch
     setup.argtypes = [vp] * 6 + [ci] * 6 + [cf] * 3 + [vp] * 4
     raster = ctypes.CDLL(jobs["K1r"][1]).fp_raster_launch
-    raster.argtypes = [vp] * 6 + [ci] * 9 + [cf] * 2 + [vp] * 7
+    raster.argtypes = [vp] * 6 + [ci] * 9 + [cf] * 2 + [vp] * 8
     setup.restype = raster.restype = ci
     _libs = {"K1s": setup, "K1r": raster}
     return _libs
@@ -244,9 +244,9 @@ def setup_cuda(mesh_tensors, poses, K, crop_tfs, out_hw, light_dir=(0.0, 0.0, 1.
 
 
 def rasterize_cuda(mesh_tensors, scratch, out_hw, use_light, w_ambient, w_diffuse,
-                   with_normal, with_tri=False):
+                   with_normal, with_tri=False, with_bary=False):
     """Launch K1r on the scratch of :func:`setup_cuda`. Returns the output
-    dict of ``render_crops`` (plus ``tri`` int32 when asked)."""
+    dict of ``render_crops`` (plus ``tri`` int32 and ``bary`` when asked)."""
     H, W = out_hw
     B, V = scratch["vtab"].shape[:2]
     F = mesh_tensors["faces"].shape[0]
@@ -277,6 +277,8 @@ def rasterize_cuda(mesh_tensors, scratch, out_hw, use_light, w_ambient, w_diffus
         out["normal"] = torch.empty((B, H, W, 3), **f32)
     if with_tri:
         out["tri"] = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+    if with_bary:
+        out["bary"] = torch.empty((B, H, W, 3), **f32)
     _launch(
         "K1r", dev, scratch["rec"].data_ptr(), scratch["bins"].data_ptr(),
         scratch["vtab"].data_ptr(), faces.data_ptr(), vcol.data_ptr(),
@@ -286,19 +288,20 @@ def rasterize_cuda(mesh_tensors, scratch, out_hw, use_light, w_ambient, w_diffus
         out["rgb"].data_ptr(), out["xyz"].data_ptr(), out["depth"].data_ptr(),
         out["mask"].data_ptr(), out["normal"].data_ptr() if with_normal else None,
         out["tri"].data_ptr() if with_tri else None,
+        out["bary"].data_ptr() if with_bary else None,
     )
     return out
 
 
 def render_crops_cuda(mesh_tensors, poses, K, crop_tfs, out_hw, use_light,
                       w_ambient, w_diffuse, light_dir, backface_cull, with_normal,
-                      with_tri=False):
+                      with_tri=False, with_bary=False):
     """Allocate -> K1s -> K1r. ``with_tri`` adds the winning face ids
-    (``tri``, -1 = background) — what the plain version also reports; used to
-    compare the two winner by winner."""
+    (``tri``, -1 = background), ``with_bary`` their perspective-correct
+    barycentrics (``bary``, 0 on background)."""
     scratch = setup_cuda(mesh_tensors, poses, K, crop_tfs, out_hw, light_dir, backface_cull)
     return rasterize_cuda(mesh_tensors, scratch, out_hw, use_light, w_ambient, w_diffuse,
-                          with_normal, with_tri)
+                          with_normal, with_tri, with_bary)
 
 
 def render_crops(
@@ -313,27 +316,35 @@ def render_crops(
     light_dir=(0.0, 0.0, 1.0),
     backface_cull=False,
     with_normal=True,
+    with_tri=False,
+    with_bary=False,
 ):
     """Render B poses of one mesh into their crop windows.
 
     Same contract as ``render_crops_pallas`` of the JAX package: returns
     ``rgb`` (B,H,W,3) lit colour in [0,1], ``depth`` (B,H,W), ``xyz``
     (B,H,W,3) camera-space, ``mask`` (B,H,W) bool and, when ``with_normal``,
-    ``normal`` (B,H,W,3). Tensors on a CUDA device run the kernel; tensors on
-    the CPU run the plain version.
+    ``normal`` (B,H,W,3). ``with_tri`` adds ``tri`` (B,H,W) int32, the
+    winning face (-1 = background), and ``with_bary`` adds ``bary``
+    (B,H,W,3), its perspective-correct barycentrics (0 on background) — what
+    the JAX package's plain ``render_crops`` returns for texture baking. Both
+    are off by default, so no other path writes more than before. Tensors on
+    a CUDA device run the kernel; tensors on the CPU run the plain version.
     """
     poses, K, crop_tfs = plain.prepare_render_args(mesh_tensors, poses, K, crop_tfs)
     if poses.is_cuda:
         return render_crops_cuda(
             mesh_tensors, poses, K, crop_tfs, tuple(out_hw), use_light,
-            w_ambient, w_diffuse, light_dir, backface_cull, with_normal,
+            w_ambient, w_diffuse, light_dir, backface_cull, with_normal, with_tri, with_bary,
         )
     out = plain.render_crops(
         mesh_tensors, poses, K, crop_tfs, out_hw=tuple(out_hw), use_light=use_light,
         with_normal=with_normal, w_ambient=w_ambient, w_diffuse=w_diffuse,
-        light_dir=light_dir, backface_cull=backface_cull,
+        light_dir=light_dir, backface_cull=backface_cull, with_bary=with_bary,
     )
-    out.pop("tri")
+    tri = out.pop("tri")
+    if with_tri:
+        out["tri"] = tri.int()
     return out
 
 

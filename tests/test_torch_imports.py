@@ -1,6 +1,6 @@
 """The port stands alone: neither ``foundationpose_tpu_torch`` nor
 ``chip_smoke.py`` imports jax, flax, optax, orbax or anything of the JAX
-package, and the port imports without h5py."""
+package, and the port imports without h5py, cv2, PIL, sklearn or yaml."""
 
 import os
 import re
@@ -34,7 +34,8 @@ def test_sources_found():
     names = {os.path.relpath(f, ROOT) for f in _sources()}
     for must in ("chip_smoke.py", "foundationpose_tpu_torch/ops/raster_cuda.py",
                  "foundationpose_tpu_torch/csrc/raster.cu",
-                 "foundationpose_tpu_torch/engine/estimator.py"):
+                 "foundationpose_tpu_torch/engine/estimator.py",
+                 "foundationpose_tpu_torch/field/runner.py"):
         assert must in names
 
 
@@ -109,6 +110,35 @@ def test_port_imports_without_h5py():
         "    assert 'h5py' in str(e), e\n"
         "else:\n"
         "    raise AssertionError('an archive opened without h5py')\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+def test_port_imports_without_sklearn_or_yaml():
+    """Every module of the port imports with sklearn and yaml blocked (the
+    card's machine need not have them): the field's bounds cluster with
+    scipy, and a YAML config names PyYAML when it is missing."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['sklearn'] = None\n"
+        "sys.modules['yaml'] = None\n"
+        "import foundationpose_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import numpy as np\n"
+        "from foundationpose_tpu_torch.field import bounds\n"
+        "pts = np.random.default_rng(0).normal(0, 0.01, (50, 3))\n"
+        "assert len(bounds.biggest_cluster(pts, 0.06)) == 50\n"
+        "from foundationpose_tpu_torch.utils import config\n"
+        "try:\n"
+        "    config.load_field_config('x.yml')\n"
+        "except ImportError as e:\n"
+        "    assert 'PyYAML' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('a YAML file read without yaml')\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -1,21 +1,25 @@
 """Port parity for the torch-checkpoint import (``models/weights.py``).
 
-A reference-layout state dict (``fake_refine_sd`` / ``fake_score_sd`` of
-tests/test_weights.py, with and without BatchNorm) goes through the JAX
-package's import into its flax nets and through the port's import into the
-port's nets; both forwards run the same numpy inputs in float32 on the CPU.
+A reference-layout state dict (``fake_refine_sd`` / ``fake_score_sd``, with
+and without BatchNorm: the layout and distributions of tests/test_weights.py,
+but drawn from seeds that are a fixed function of each parameter's name —
+tests/test_weights.py seeds with ``hash(prefix)``, which Python salts per
+process) goes through the JAX package's import into its flax nets and through
+the port's import into the port's nets; both forwards run the same numpy
+inputs in float32 on the CPU.
 Gate: atol 2e-4 + rtol 1e-3, as tests/test_torch_nets.py holds the nets.
 ``load_engine_params`` reads ``refiner.pth`` / ``scorer.pth``, the JAX
 package's flax ``.msgpack`` files (exactly) and the port's engine checkpoint
 file into an engine.
 """
 
+import zlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_weights import fake_refine_sd, fake_score_sd
 
 from foundationpose_tpu.models import weights as jweights
 from foundationpose_tpu.models.refine_net import RefineNet as JRefineNet
@@ -28,6 +32,118 @@ from foundationpose_tpu_torch.models.score_net import ScoreNetMultiPair
 
 torch.set_num_threads(1)
 ATOL, RTOL = 2e-4, 1e-3
+
+
+# ---- reference-layout fake state dicts, seeded by zlib.crc32 of the name
+
+
+def _rng(prefix):
+    return np.random.default_rng(zlib.crc32(prefix.encode()))
+
+
+def _fake_conv(sd, prefix, cin, cout, k):
+    rng = _rng(prefix)
+    sd[f"{prefix}.weight"] = rng.normal(size=(cout, cin, k, k)).astype(np.float32) * 0.05
+    sd[f"{prefix}.bias"] = rng.normal(size=(cout,)).astype(np.float32) * 0.05
+
+
+def _fake_bn(sd, prefix, c):
+    rng = _rng(prefix)
+    sd[f"{prefix}.weight"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    sd[f"{prefix}.bias"] = rng.normal(size=c).astype(np.float32) * 0.1
+    sd[f"{prefix}.running_mean"] = rng.normal(size=c).astype(np.float32) * 0.1
+    sd[f"{prefix}.running_var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+
+
+def _fake_linear(sd, prefix, cin, cout):
+    rng = _rng(prefix)
+    sd[f"{prefix}.weight"] = rng.normal(size=(cout, cin)).astype(np.float32) * 0.05
+    sd[f"{prefix}.bias"] = rng.normal(size=(cout,)).astype(np.float32) * 0.05
+
+
+def _fake_mha(sd, prefix, d):
+    rng = _rng(prefix)
+    sd[f"{prefix}.in_proj_weight"] = rng.normal(size=(3 * d, d)).astype(np.float32) * 0.05
+    sd[f"{prefix}.in_proj_bias"] = np.zeros(3 * d, np.float32)
+    _fake_linear(sd, f"{prefix}.out_proj", d, d)
+
+
+def _fake_tf_layer(sd, prefix, d=512, ff=512):
+    _fake_mha(sd, f"{prefix}.self_attn", d)
+    _fake_linear(sd, f"{prefix}.linear1", d, ff)
+    _fake_linear(sd, f"{prefix}.linear2", ff, d)
+    for norm in ("norm1", "norm2"):
+        sd[f"{prefix}.{norm}.weight"] = np.ones(d, np.float32)
+        sd[f"{prefix}.{norm}.bias"] = np.zeros(d, np.float32)
+
+
+def _fake_encoder_a(sd, prefix, c_in, bn):
+    _fake_conv(sd, f"{prefix}.0.net.0", c_in, 64, 7)
+    _fake_conv(sd, f"{prefix}.1.net.0", 64, 128, 3)
+    if bn:
+        _fake_bn(sd, f"{prefix}.0.net.1", 64)
+        _fake_bn(sd, f"{prefix}.1.net.1", 128)
+    for i in (2, 3):
+        _fake_conv(sd, f"{prefix}.{i}.conv1", 128, 128, 3)
+        _fake_conv(sd, f"{prefix}.{i}.conv2", 128, 128, 3)
+        if bn:
+            _fake_bn(sd, f"{prefix}.{i}.bn1", 128)
+            _fake_bn(sd, f"{prefix}.{i}.bn2", 128)
+
+
+def _fake_encoder_ab(sd, prefix, bn):
+    for i in (0, 1):
+        _fake_conv(sd, f"{prefix}.{i}.conv1", 256, 256, 3)
+        _fake_conv(sd, f"{prefix}.{i}.conv2", 256, 256, 3)
+        if bn:
+            _fake_bn(sd, f"{prefix}.{i}.bn1", 256)
+            _fake_bn(sd, f"{prefix}.{i}.bn2", 256)
+    _fake_conv(sd, f"{prefix}.2.net.0", 256, 512, 3)
+    if bn:
+        _fake_bn(sd, f"{prefix}.2.net.1", 512)
+    for i in (3, 4):
+        _fake_conv(sd, f"{prefix}.{i}.conv1", 512, 512, 3)
+        _fake_conv(sd, f"{prefix}.{i}.conv2", 512, 512, 3)
+        if bn:
+            _fake_bn(sd, f"{prefix}.{i}.bn1", 512)
+            _fake_bn(sd, f"{prefix}.{i}.bn2", 512)
+
+
+def fake_refine_sd(bn=False, c_in=6):
+    sd = {}
+    _fake_encoder_a(sd, "encodeA", c_in, bn)
+    _fake_encoder_ab(sd, "encodeAB", bn)
+    _fake_tf_layer(sd, "trans_head.0")
+    _fake_linear(sd, "trans_head.1", 512, 3)
+    _fake_tf_layer(sd, "rot_head.0")
+    _fake_linear(sd, "rot_head.1", 512, 3)
+    return sd
+
+
+def fake_score_sd(bn=False, c_in=6):
+    sd = {}
+    _fake_encoder_a(sd, "encoderA", c_in, bn)
+    _fake_encoder_ab(sd, "encoderAB", bn)
+    _fake_mha(sd, "att", 512)
+    _fake_mha(sd, "att_cross", 512)
+    _fake_linear(sd, "linear", 512, 1)
+    return sd
+
+
+def test_fake_weights_do_not_depend_on_the_process():
+    """Two interpreters with different string-hash salts draw the same fake
+    weights (tests/test_weights.py's ``hash(prefix)`` seeds do not)."""
+    import os
+    import subprocess
+    import sys
+
+    code = ("import sys; sys.path.insert(0, 'tests'); import test_torch_weights as t; "
+            "print(float(t.fake_refine_sd(bn=True)['encodeAB.3.conv1.weight'].sum()))")
+    outs = {subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                           cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           env={**os.environ, "PYTHONHASHSEED": str(seed)},
+                           timeout=300).stdout.strip() for seed in (1, 2)}
+    assert len(outs) == 1 and outs != {""}
 
 
 def _inputs(n, px, seed):
