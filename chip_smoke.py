@@ -36,7 +36,16 @@ bf16 nets from the shipped object-agnostic checkpoint where a net runs):
   L-shape it renders and writes: SDF signs and the mesh against the true
   surface, K1s + K1r at the texture bake's shape (with the winning faces and
   barycentrics) against their plain versions, the true mesh baked and
-  re-rendered, and the rays/s of the triplane and hash encoders.
+  re-rendered, and the rays/s of the triplane and hash encoders;
+- the online model-free tracker at ``OnlineConfig()`` on an orbit of the
+  L-shape rendered through K1 (``init``, a ``step`` per frame up to the first
+  retrain, drift gated), pose-graph BA on its keyframes' perturbed true
+  poses, and ``finalize`` with a texture bake; K1s + K1r held at the
+  tracker's B = 1 x 160 px shape;
+- two ranks on the card over gloo: the sharded ``register`` and
+  ``bundle_adjust`` against the unsharded runs, and the same ranks over nccl
+  (expected to be refused: two ranks on one device). This checks the
+  collectives' code path, not NCCL and not more than one card.
 
 It builds every CUDA kernel of those paths (K1s: face setup and tile binning,
 K1r: the crop rasterizer) from the sources in this checkout, holds each
@@ -62,6 +71,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2069,6 +2079,437 @@ def run_field_phase(torch, demo, raster, raster_cuda, smi):
             {"setup": srow, "raster": krow, "time": bake_time})
 
 
+SLAM_FRAMES = 40           # the orbit's frames at most; it stops after the first retrain
+SLAM_DIST = 0.45           # metres from the camera to the object's origin at frame 0
+# per-frame orbit about y and z (rad): half the step of tests/test_online.py:117,
+# the same shape. Tracked on past the first retrain, or at the full step for 40
+# frames, the reference design drifts beyond the gate (PERF.md, section 6).
+SLAM_STEP = (0.0175, 0.006)
+SLAM_DRIFT_GATE = (0.02, 8.0)  # metres, degrees: tests/test_online.py:158-160
+SLAM_RECON_GATE = 0.03     # median distance to the true surface (m), tests/test_online.py:175
+SLAM_BA = dict(n_landmarks=512, rounds=3)
+SLAM_BA_NOISE = (0.02, 0.004)  # rad, m: the keyframe perturbation of tests/test_ba.py:207-211
+
+
+def orbit(n):
+    """cam_in_ob of ``n`` frames orbiting the object (tests/test_online.py:112-121)."""
+    from foundationpose_tpu_torch.core.poses import euler_matrix_np
+
+    cam0 = np.eye(4)
+    cam0[:3, 3] = [0.0, 0.0, -SLAM_DIST]
+    traj = [cam0]
+    for i in range(1, n):
+        c = np.eye(4)
+        c[:3, :3] = euler_matrix_np(0.0, SLAM_STEP[0] * i, SLAM_STEP[1] * i)[:3, :3]
+        c[:3, 3] = c[:3, :3] @ cam0[:3, 3]
+        traj.append(c)
+    return np.stack(traj)
+
+
+def rot_deg(R1, R2):
+    return float(np.degrees(np.arccos(np.clip((np.trace(R1 @ R2.T) - 1) / 2, -1, 1))))
+
+
+def run_slam_phase(torch, demo, raster, raster_cuda, smi):
+    """The online model-free tracker at ``OnlineConfig()`` (FieldConfig(n_step=
+    300) widths, 8192 render faces, 4 ICP iterations, mesh stride 2) on the
+    demo L-shape (position-coded colours, unlit) rendered through K1 at
+    480x640 along an orbit: ``init``, a ``step`` per frame (4 + 4 launches
+    each) with its keyframes, up to and including the step whose eighth
+    keyframe triggers the first retrain (at most SLAM_FRAMES frames),
+    tracking drift gated on every frame; then ``run_pose_graph_ba`` on the
+    keyframes' true poses perturbed as tests/test_ba.py perturbs them (no
+    launch; gated as there); then ``finalize(bake=True, tex_res=1024)``
+    (launches = the bake's render calls; the reconstruction gated against the
+    true surface). K1s + K1r are held against their plain versions at the
+    tracker's shape (B = 1 x 160 px, unculled, with normals, unbucketed) on
+    the bootstrap depth-map mesh and on the retrained field mesh (at the pose
+    the next step would start from). Returns (launches of the path, kernel
+    figures at the tracker's shape, the BA problem the multi_device phase
+    reuses)."""
+    from scipy.spatial import cKDTree
+
+    from foundationpose_tpu_torch.core import geometry as geo
+    from foundationpose_tpu_torch.core.poses import euler_matrix_np
+    from foundationpose_tpu_torch.evalsuite.scenes import HW_DEFAULT, K_DEFAULT
+    from foundationpose_tpu_torch.field import texture
+    from foundationpose_tpu_torch.field.runner import FieldConfig
+    from foundationpose_tpu_torch.slam import ba as ba_mod
+    from foundationpose_tpu_torch.slam.online import ModelFreeTracker, OnlineConfig
+    from foundationpose_tpu_torch.utils.profiling import StageTimer
+
+    t_phase = time.perf_counter()
+    K, hw = K_DEFAULT, tuple(HW_DEFAULT)
+    mesh = demo.make_l_shape()
+    v = mesh.vertices
+    mesh.vertex_colors = ((v - v.min(0)) / np.ptp(v, axis=0) * 190 + 40).astype(np.uint8)
+    traj = orbit(SLAM_FRAMES)
+    mt = raster.make_mesh_tensors(mesh, device="cuda")
+    out = raster_cuda.render_full_frame(mt, np.linalg.inv(traj).astype(np.float32), K, hw,
+                                        use_light=False)
+    rgbs = (out["rgb"].cpu().numpy() * 255).astype(np.float32)
+    depths = out["depth"].cpu().numpy().astype(np.float32)
+    masks = out["mask"].cpu().numpy().astype(np.uint8)
+    del out
+    expected = np.linalg.inv(traj[0]) @ traj  # cam_in_ob in the tracker's frame (camera 0's)
+
+    cfg = OnlineConfig()
+    if cfg != OnlineConfig(field=FieldConfig(n_step=300)) or cfg.max_render_faces != 8192:
+        fail(f"slam: OnlineConfig() is not at the JAX package's defaults: {cfg}")
+    tracker = ModelFreeTracker(K, cfg, device="cuda")
+    timer = StageTimer(device="cuda")
+    undo = [timer.wrap(tracker, "retrain", "retrain"),
+            timer.wrap(ba_mod, "build_ba_problem", "BA round: problem (host numpy)"),
+            timer.wrap(ba_mod, "bundle_adjust", "BA round: Gauss-Newton (device)")]
+    reset_launches(raster_cuda)
+    try:
+        tracker.init(rgbs[0], depths[0], masks[0])
+        snapshots = {}
+        steps, kf_frames, n_iter = [], [0], cfg.track_iterations
+
+        def snapshot(name):
+            """The mesh tensors and the pose the next step starts from."""
+            snapshots[name] = (tracker.mesh_tensors,
+                               np.linalg.inv(tracker.cam_in_ob) @ tracker._to_center,
+                               float(tracker.diameter))
+
+        snapshot("bootstrap depth-map mesh")
+        for f in range(1, SLAM_FRAMES):
+            n_kf, retrain_ms = len(tracker.keyframes), timer.ms.get("retrain", 0.0)
+            before = dict(raster_cuda.LAUNCHES)
+            _, ms = timed(torch, lambda: tracker.step(rgbs[f], depths[f], mask=masks[f]))
+            n = expect_launches(raster_cuda, before, n_iter,
+                                f"slam step frame {f} ({n_iter} ICP render calls)")
+            est = tracker.cam_in_ob
+            row = {"frame": f, "ms": ms, "launches": n,
+                   "keyframe": len(tracker.keyframes) > n_kf,
+                   "retrain_ms": timer.ms.get("retrain", 0.0) - retrain_ms,
+                   "drift_mm": float(np.linalg.norm(est[:3, 3] - expected[f][:3, 3]) * 1000),
+                   "drift_deg": rot_deg(est[:3, :3], expected[f][:3, :3])}
+            if row["keyframe"]:
+                kf_frames.append(f)
+            steps.append(row)
+            if timer.counts["retrain"]:
+                snapshot("retrained field mesh")
+                break
+        PER_CALL[f"ModelFreeTracker.step ({n_iter} ICP render calls)"] = n
+
+        # ---- pose-graph BA on the keyframes' true poses, perturbed
+        rng = np.random.default_rng(5)
+        cams_gt = expected[kf_frames]
+        cams_noisy = cams_gt.copy()
+        for k in range(1, len(kf_frames)):
+            d = np.eye(4)
+            d[:3, :3] = euler_matrix_np(*rng.normal(0, SLAM_BA_NOISE[0], 3))[:3, :3]
+            d[:3, 3] = rng.normal(0, SLAM_BA_NOISE[1], 3)
+            cams_noisy[k] = cams_gt[k] @ d
+        for kf, c in zip(tracker.keyframes, cams_noisy):
+            kf["cam_in_ob"] = c.copy()
+        ba_problem = ba_mod.build_ba_problem(depths[kf_frames], masks[kf_frames], cams_noisy, K,
+                                             n_landmarks=SLAM_BA["n_landmarks"])
+        before = dict(raster_cuda.LAUNCHES)
+        ba_before = timer.ms
+        cost, ba_ms = timed(torch, lambda: tracker.run_pose_graph_ba(**SLAM_BA))
+        expect_launches(raster_cuda, before, 0, "run_pose_graph_ba (renders nothing)")
+        refined = np.stack([kf["cam_in_ob"] for kf in tracker.keyframes])
+
+        def errs(cams):
+            te = np.linalg.norm(cams[:, :3, 3] - cams_gt[:, :3, 3], axis=1).mean()
+            re = np.mean([np.radians(rot_deg(c[:3, :3], g[:3, :3])) for c, g in zip(cams, cams_gt)])
+            return float(te), float(re)
+
+        (te0, re0), (te1, re1) = errs(cams_noisy), errs(refined)
+        if not (re1 < 0.5 * re0 and te1 < 2.0 * te0):
+            FAILURES.append(f"slam: BA rotation error {re0:.5f} -> {re1:.5f} rad, translation "
+                            f"{te0 * 1000:.2f} -> {te1 * 1000:.2f} mm (gate: rotation halved, "
+                            "translation not doubled)")
+
+        # ---- final field, texture bake through K1
+        n_kf = len(tracker.keyframes)
+        before = dict(raster_cuda.LAUNCHES)
+        (textured, optimized), fin_ms = timed(torch, lambda: tracker.finalize(bake=True,
+                                                                               tex_res=1024))
+        calls = -(-n_kf // texture._views_per_call(len(textured.faces), hw, texture.BINS_BUDGET))
+        bake_launches = expect_launches(raster_cuda, before, calls,
+                                        "finalize (texture bake render calls)")
+        PER_CALL["ModelFreeTracker.finalize: texture bake (one per render call)"] = bake_launches
+        path_launches = dict(raster_cuda.LAUNCHES)  # read just after the path
+    finally:
+        for u in undo:
+            u()
+    ba_stage_ms = {k: v - ba_before.get(k, 0.0) for k, v in timer.ms.items() if k.startswith("BA")}
+
+    drift_mm = max(r["drift_mm"] for r in steps)
+    drift_deg = max(r["drift_deg"] for r in steps)
+    if drift_mm > SLAM_DRIFT_GATE[0] * 1000 or drift_deg > SLAM_DRIFT_GATE[1]:
+        FAILURES.append(f"slam: tracking drift {drift_mm:.1f} mm / {drift_deg:.2f} deg "
+                        f"(gates {SLAM_DRIFT_GATE[0] * 1000:.0f} mm, {SLAM_DRIFT_GATE[1]} deg)")
+    n_retrain = timer.counts.get("retrain", 0)
+    if len(kf_frames) < 4 or n_retrain < 1:
+        fail(f"slam: {len(kf_frames)} keyframes and {n_retrain} retrains (the phase needs several "
+             "keyframes and at least one retrain)")
+    # the reconstruction (tracker frame = camera 0's) against the true outer surface
+    rec = textured.vertices @ traj[0][:3, :3].T + traj[0][:3, 3]
+    surf, _ = outer_surface_samples(mesh, 200_000, np.random.default_rng(0))
+    dist = cKDTree(surf).query(rec)[0]
+    recon = {"faces": int(len(textured.faces)), "median_dist_mm": float(np.median(dist) * 1000),
+             "mean_dist_mm": float(dist.mean() * 1000),
+             "texture": None if textured.texture is None else list(textured.texture.shape)}
+    if not len(textured.faces) or np.median(dist) > SLAM_RECON_GATE or textured.texture is None:
+        FAILURES.append(f"slam: reconstruction {recon} (gate: textured, median distance "
+                        f"< {SLAM_RECON_GATE * 1000:.0f} mm)")
+
+    # ---- K1s + K1r at the tracker's shape against their plain versions
+    Kt = torch.tensor(K, dtype=torch.float32, device="cuda")
+    k1_rows, k1_times = [], []
+    for name, (smt, pose_c, diameter) in snapshots.items():
+        poses = torch.tensor(pose_c[None], dtype=torch.float32, device="cuda")
+        tfs = geo.compute_crop_window_tf_batch(poses, Kt, 1.2, diameter, (S, S))
+        tag = {"case": f"slam tracker, {name}", "batch": "B1", "cull": False}
+        srow, scratch = compare_setup(raster, raster_cuda, torch, smt, poses, Kt, tfs, False, tag)
+        kw = dict(out_hw=(S, S), backface_cull=False, with_normal=True)
+        # marching tetrahedra leaves sub-pixel noise faces in the field mesh
+        # (ROADMAP.md queue 3); the bake's excuse covers exactly those
+        cap = EXCUSE_CAP if "field" in name else 0.0
+        krow = compare_with_plain(raster, raster_cuda, torch, smt, poses, Kt, tfs, kw,
+                                  {**tag, "with_normal": True}, scratch, excuse_cap=cap)
+        k1_rows.append({"setup": srow, "raster": krow})
+        k1_times.append(time_render(raster, raster_cuda, torch, f"slam tracker, {name}", smt,
+                                    poses, Kt, tfs, (S, S), True, cull=False))
+    rounds = SLAM_BA["rounds"]
+    track_ms = [r["ms"] - r["retrain_ms"] for r in steps]
+    say("slam", frames=len(steps) + 1, orbit_step_rad=list(SLAM_STEP), hw=list(hw),
+        reduced=[f"orbit stops after the first retrain: {len(steps) + 1} of {SLAM_FRAMES} frames"],
+        config={"keyframe_min_rot_deg": cfg.keyframe_min_rot_deg,
+                "keyframe_min_trans": cfg.keyframe_min_trans,
+                "retrain_every_keyframes": cfg.retrain_every_keyframes,
+                "track_iterations": n_iter, "mesh_stride": cfg.mesh_stride,
+                "max_render_faces": cfg.max_render_faces, "field_n_step": cfg.field.n_step,
+                "field_rays": cfg.field.n_rand},
+        keyframes=len(kf_frames), keyframe_frames=kf_frames, retrains=n_retrain,
+        retrain_ms=timer.ms.get("retrain", 0.0) / max(n_retrain, 1),
+        step_launches=PER_CALL[f"ModelFreeTracker.step ({n_iter} ICP render calls)"],
+        step_ms_median=float(np.median(track_ms)), step_ms_max=float(np.max(track_ms)),
+        drift_max_mm=drift_mm, drift_max_deg=drift_deg, steps=steps,
+        ba={"keyframes": n_kf, **SLAM_BA, "cost": cost, "ms": ba_ms,
+            "ms_per_round": ba_ms / rounds,
+            "stage_ms_per_round": {k: v / rounds for k, v in ba_stage_ms.items()},
+            "rot_err_rad": [re0, re1], "trans_err_mm": [te0 * 1000, te1 * 1000],
+            "landmarks_observed": int((ba_problem["obs_w"] > 0).any(axis=1).sum())},
+        finalize={"ms": fin_ms, "bake_render_calls": calls, "launches": bake_launches,
+                  **recon},
+        kernels_at_tracker_shape=k1_rows, kernel_times=k1_times,
+        phase_s=time.perf_counter() - t_phase,
+        gate=f"every step {n_iter} + {n_iter} launches; drift < {SLAM_DRIFT_GATE[0] * 1000:.0f} mm "
+             f"and {SLAM_DRIFT_GATE[1]} deg on every frame; >= 4 keyframes and >= 1 retrain; BA "
+             "halves the mean rotation error without doubling the translation error, launching "
+             "nothing; finalize launches = the bake's render calls; the textured reconstruction "
+             f"within {SLAM_RECON_GATE * 1000:.0f} mm of the true surface (median); K1 at the "
+             "tracker's shape at the kernel gates (the field mesh: the bake's noise-face excuse)",
+        card=smi)
+    return path_launches, {"rows": k1_rows, "times": k1_times}, ba_problem
+
+
+MD_WORLD = 2               # ranks sharing the one card
+MD_TIMEOUT = 300           # seconds a launch of the ranks may take
+MD_REGISTER_TOL = 1e-3     # tests/test_sharded_register.py:76-84
+MD_BA_TOL = 1e-4           # tests/test_ba.py:162
+
+
+def md_rank(rank, coord, tmp, backend):
+    """One rank of the multi_device phase (run in its own process). With
+    ``backend="nccl"`` it only tries one all_reduce; with gloo it runs the
+    unsharded and the sharded learned-hybrid ``register`` and BA and writes
+    what it got to ``tmp``."""
+    import torch
+
+    from foundationpose_tpu_torch.apps import demo_synthetic as demo
+    from foundationpose_tpu_torch.ops import raster_cuda
+    from foundationpose_tpu_torch.parallel import multihost
+    from foundationpose_tpu_torch.slam import ba as ba_mod
+
+    multihost.initialize(coord, num_processes=MD_WORLD, process_id=rank, device="cuda",
+                         backend=backend)
+    if backend == "nccl":
+        x = torch.ones(4, device="cuda")
+        torch.distributed.all_reduce(x)
+        torch.cuda.synchronize()
+        print(f"RANK{rank}_NCCL_ALL_REDUCE {x.tolist()}", flush=True)
+        return
+    mesh = multihost.make_global_mesh(("batch",))
+    out = {"device": str(multihost.local_device()), "backend": torch.distributed.get_backend(),
+           "world": multihost.process_count()}
+    scene = demo.make_scene((480, 640), device="cuda")
+    args = (scene["K"], scene["rgb"], scene["depth"], scene["mask"])
+    res = {}
+    for dtype in ("bfloat16", "float32"):
+        for kind, dm in (("one", None), ("sharded", mesh)):
+            est = demo.build_estimator(scene["mesh"], device="cuda", device_mesh=dm)
+            if dtype == "float32":
+                est.refiner, est.scorer = float32_nets(est.refiner, est.scorer)
+            est.register(*args)  # warm: cuDNN's algorithm choice, the allocator
+            multihost.sync_hosts()
+            reset_launches(raster_cuda)
+            pose, ms = timed(torch, lambda: est.register(*args))
+            tag = f"{kind}_{dtype}"
+            out[f"{tag}_launches"] = dict(raster_cuda.LAUNCHES)
+            out[f"{tag}_ms"] = ms
+            res.update({f"{tag}_pose": pose, f"{tag}_poses": est.poses,
+                        f"{tag}_scores": est.scores, f"{tag}_order": est.hyp_order})
+    out["n_grid"] = int(len(est.rot_grid))
+    out["padded_to"] = out["n_grid"] + (-out["n_grid"]) % est._hyp_quantum()
+    p = np.load(os.path.join(tmp, "ba.npz"))
+    prob = [p[k] for k in ("poses", "X", "kf", "pt", "w", "n")]
+    cfg = ba_mod.BAConfig()
+    for kind, kw in (("one", dict(device="cuda")), ("sharded", dict(mesh=mesh))):
+        (poses, X, costs), ms = timed(torch, lambda: ba_mod.bundle_adjust(
+            *prob[:5], obs_n=prob[5], config=cfg, **kw))
+        res.update({f"ba_{kind}_poses": poses.cpu().numpy(), f"ba_{kind}_X": X.cpu().numpy(),
+                    f"ba_{kind}_costs": costs.cpu().numpy()})
+        out[f"ba_{kind}_ms"] = ms
+    multihost.sync_hosts()
+    np.savez(os.path.join(tmp, f"rank{rank}.npz"), **res)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    print(f"RANK{rank}_OK", flush=True)
+
+
+def float32_nets(refiner, scorer):
+    """Copies of a learned-hybrid estimator's nets computing in float32."""
+    from foundationpose_tpu_torch.engine.refiner import PoseRefiner
+    from foundationpose_tpu_torch.engine.scorer import HybridScorer, PoseScorer
+
+    r32 = PoseRefiner(dataclasses.replace(refiner.cfg, dtype="float32"), device="cuda")
+    r32.net.load_state_dict(refiner.net.state_dict())
+    s32 = PoseScorer(dataclasses.replace(scorer.learned.cfg, dtype="float32"), device="cuda")
+    s32.net.load_state_dict(scorer.learned.net.state_dict())
+    return r32, HybridScorer(s32, geo_config=scorer.geo_cfg, weight=scorer.weight)
+
+
+def launch_ranks(tmp, backend):
+    """Start MD_WORLD processes of ``md_rank`` on the card; wait at most
+    MD_TIMEOUT s, then stop every one still running. Returns [(returncode or
+    None when stopped, output tail)]."""
+    import socket
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(MD_WORLD):
+        code = (f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+                f"chip_smoke.md_rank({r}, 'localhost:{port}', {tmp!r}, {backend!r})")
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=here,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    deadline = time.perf_counter() + MD_TIMEOUT
+    results = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+            results.append((p.returncode, out[-3000:]))
+        except subprocess.TimeoutExpired:
+            results.append((None, "stopped at the time limit"))
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    return results
+
+
+def ranked_diff(a_scores, a_poses, b_scores, b_poses, tol):
+    """(largest score difference, largest pose difference, entries matched out
+    of place) of two ranked lists. Neighbours scored within ``tol`` of each
+    other may trade places: an entry that differs from its slot is matched
+    among the other list's entries scored within ``tol`` of it."""
+    worst, moved = 0.0, 0
+    for i, d in enumerate(np.abs(a_poses - b_poses).max(axis=(1, 2))):
+        if d > tol:
+            near = np.nonzero(np.abs(b_scores - a_scores[i]) <= tol)[0]
+            d = min((np.abs(a_poses[i] - b_poses[j]).max() for j in near), default=d)
+            moved += 1
+        worst = max(worst, float(d))
+    return float(np.abs(a_scores - b_scores).max()), worst, moved
+
+
+def run_multi_device(torch, raster_cuda, ba_problem, smi):
+    """Two ranks on the one card over gloo (``multihost.initialize(...,
+    backend="gloo")``): in each, the learned-hybrid ``register`` (252
+    hypotheses, 160 px) unsharded and with ``device_mesh`` (each rank refines
+    its half of the 256 through K1; every rank scores all), with the shipped
+    bf16 nets and with float32 copies, and ``bundle_adjust`` on the slam
+    phase's keyframe problem unsharded and with the landmarks split. Sharded
+    equals unsharded with float32 nets (ranked list and scores at
+    MD_REGISTER_TOL), as earlier phases hold paths with float32 nets; BA poses
+    at MD_BA_TOL; both ranks return the same. Then
+    the same two ranks over nccl, expected to be refused (two ranks on one
+    device). Checks the collectives' code path on one card, not NCCL and not
+    more than one card."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, "ba.npz"), poses=ba_problem["poses_ob_in_cam"],
+                 X=ba_problem["landmarks"], kf=ba_problem["obs_kf"], pt=ba_problem["obs_pt"],
+                 w=ba_problem["obs_w"], n=ba_problem["obs_n"])
+        gloo = launch_ranks(tmp, "gloo")
+        for r, (rc, out) in enumerate(gloo):
+            if rc != 0 or f"RANK{r}_OK" not in out:
+                fail(f"multi_device: gloo rank {r} exited {rc}:\n{out}")
+        info = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(MD_WORLD)]
+        res = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(MD_WORLD)]
+        nccl = launch_ranks(tmp, "nccl")
+    rows = []
+    for r, (i, x) in enumerate(zip(info, res)):
+        row = {"rank": r, **i}
+        for dtype in ("float32", "bfloat16"):
+            ds, dp, swapped = ranked_diff(x[f"sharded_{dtype}_scores"], x[f"sharded_{dtype}_poses"],
+                                          x[f"one_{dtype}_scores"], x[f"one_{dtype}_poses"],
+                                          MD_REGISTER_TOL)
+            row[dtype] = {"scores_max_abs_diff": ds, "poses_max_abs_diff": dp,
+                          "reordered_ties": swapped,
+                          "pose_max_abs_diff": float(np.abs(x[f"sharded_{dtype}_pose"]
+                                                            - x[f"one_{dtype}_pose"]).max())}
+        row.update({
+            "ba_poses_max_abs_diff": float(np.abs(x["ba_sharded_poses"] - x["ba_one_poses"]).max()),
+            "ba_X_max_abs_diff": float(np.abs(x["ba_sharded_X"] - x["ba_one_X"]).max()),
+            "ba_costs": [x["ba_one_costs"].tolist(), x["ba_sharded_costs"].tolist()]})
+        rows.append(row)
+        f32 = row["float32"]
+        ok = (f32["scores_max_abs_diff"] <= MD_REGISTER_TOL
+              and f32["poses_max_abs_diff"] <= MD_REGISTER_TOL
+              and f32["pose_max_abs_diff"] <= MD_REGISTER_TOL
+              and all(np.isfinite(x[f"sharded_{d}_scores"]).all() for d in ("float32", "bfloat16"))
+              and len(x["sharded_float32_scores"]) == i["n_grid"] == 252 and i["padded_to"] == 256
+              and row["ba_poses_max_abs_diff"] <= MD_BA_TOL
+              and i["backend"] == "gloo" and i["world"] == MD_WORLD
+              and all(set(i[f"sharded_{d}_launches"].values()) == {11}
+                      for d in ("float32", "bfloat16")))
+        if not ok:
+            say("multi_device", failed=row)
+            fail(f"multi_device: rank {r}: the sharded runs differ from the unsharded ones: {row}")
+    across = max(float(np.abs(res[0][k] - res[1][k]).max()) for k in res[0])
+    if across > 1e-5:
+        fail(f"multi_device: the two ranks' results differ by {across}")
+    nccl_refused = all(rc != 0 for rc, _ in nccl)
+    say("multi_device", backend="gloo", world=MD_WORLD, device=info[0]["device"], ranks=rows,
+        ranks_max_abs_diff=across,
+        nccl={"refused": nccl_refused, "exit_codes": [rc for rc, _ in nccl],
+              "errors": [[ln for ln in o.splitlines() if "rror" in ln][-2:] for _, o in nccl]},
+        phase_s=time.perf_counter() - t_phase,
+        checks="torch.distributed collectives (all_reduce SUM of partial sums, row gathers) "
+               "between two processes on ONE card over gloo; not NCCL, not two cards",
+        gate=f"register with float32 nets: ranked list and scores within {MD_REGISTER_TOL} of the "
+             f"unsharded run (neighbours within {MD_REGISTER_TOL} may trade places), 252 "
+             "hypotheses padded to 256; 11 + 11 launches per rank with either net precision; "
+             f"BA poses within {MD_BA_TOL}; ranks equal. The bf16 nets' difference is printed: "
+             "their kernels round differently at a refine batch of 128 and of 256, and five "
+             "refine iterations amplify it",
+        card=smi)
+    return add_counts(add_counts({}, info[0]["sharded_bfloat16_launches"]),
+                      info[1]["sharded_bfloat16_launches"]), rows
+
+
 def main():
     import torch
 
@@ -2091,12 +2532,22 @@ def main():
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
     # ---- build every kernel of the path from the sources in this checkout
-    # (one compiler process per source, side by side)
+    # (one compiler process per source, side by side), and the port's host
+    # library (g++, pose clustering)
+    from foundationpose_tpu_torch import native
+
     t0 = time.perf_counter()
+    gxx = subprocess.Popen([sys.executable, "-c", "from foundationpose_tpu_torch import native; "
+                            "native.build()"], cwd=os.path.dirname(os.path.abspath(__file__)))
     raster_cuda.build()
+    if gxx.wait() != 0:
+        fail("the host library native/cluster.cpp did not build (is g++ installed?)")
+    native.build()
     sources = {k: os.path.relpath(src, os.path.dirname(os.path.abspath(__file__)))
                for k, (src, _) in raster_cuda.SOURCES.items()}
     say("build", kernels=sources, seconds=time.perf_counter() - t0,
+        host_library={"source": os.path.relpath(native.SOURCE, os.path.dirname(
+            os.path.abspath(__file__))), "compiler": shutil.which("g++"), "flags": native.FLAGS},
         nvcc_seconds=raster_cuda.BUILD_SECONDS,
         ptxas={k: [l for l in log.splitlines() if "registers" in l or "spill" in l]
                for k, log in raster_cuda.BUILD_LOG.items()})
@@ -2197,6 +2648,10 @@ def main():
         run_train(torch, raster, raster_cuda, scene, smi)
     by_path["run_field + true-mesh texture bake"], field_k = run_field_phase(
         torch, demo, raster, raster_cuda, smi)
+    by_path["ModelFreeTracker: init, steps, retrains, pose-graph BA, finalize + bake"], slam_k, \
+        ba_problem = run_slam_phase(torch, demo, raster, raster_cuda, smi)
+    by_path["multi_device: sharded register on 2 ranks (gloo)"], _ = run_multi_device(
+        torch, raster_cuda, ba_problem, smi)
     all_launches = {}
     for counts in by_path.values():
         add_counts(all_launches, counts)
@@ -2220,6 +2675,12 @@ def main():
                   | {"K1s_bound_ms": c["K1s_bound"]["bound_ms"],
                      "K1r_bound_ms": c["K1r_bound"]["bound_ms"]}
                   for c in train_k["times"]]
+    slam_rows = [{k: c[k] for k in ("case", "shape", "ms", "K1s_ms", "K1r_ms", "K1s_device_ms",
+                                    "K1r_device_ms", "plain_ms", "K1s_plain_ms", "bound_ms",
+                                    "bound_by", "pixel_face_tests")}
+                 | {"K1s_bound_ms": c["K1s_bound"]["bound_ms"],
+                    "K1r_bound_ms": c["K1r_bound"]["bound_ms"]}
+                 for c in slam_k["times"]]
     bake = field_k["time"]
     bake_row = {k: bake[k] for k in ("case", "shape", "ms", "K1s_ms", "K1r_ms", "K1s_device_ms",
                                      "K1r_device_ms", "plain_ms", "K1s_plain_ms", "bound_ms",
@@ -2236,11 +2697,14 @@ def main():
         "max_abs_err": max(k1["setup_worst"]["vtab_max_abs_err"],
                            suite_k["setup_worst"]["vtab_max_abs_err"],
                            train_k["kernels"]["setup_worst"]["vtab_max_abs_err"],
-                           field_k["setup"]["vtab_max_abs_err"]),
+                           field_k["setup"]["vtab_max_abs_err"],
+                           *(r["setup"]["vtab_max_abs_err"] for r in slam_k["rows"])),
         "worst": k1["setup_worst"], "worst_suite_full_frames": suite_k["setup_worst"],
         "worst_training_shapes": train_k["kernels"]["setup_worst"],
         "training_shapes": train_rows,
         "bake_shape": bake_row, "bake_shape_vs_plain": field_k["setup"],
+        "tracker_shape": slam_rows,
+        "tracker_shape_vs_plain": [r["setup"] for r in slam_k["rows"]],
         "tolerance": SETUP_GATE,
         "ms": main_row["K1s_ms"], "device_ms": main_row["K1s_device_ms"],
         "plain_ms": main_row["K1s_plain_ms"],
@@ -2256,12 +2720,16 @@ def main():
         "max_abs_err": max(*k1["worst_abs_err"].values(), *suite_k["worst_abs_err"].values(),
                            *train_k["kernels"]["worst_abs_err"].values(),
                            *(field_k["raster"][f"{k}_max_abs_err"] for k in ("depth", "xyz", "rgb")),
-                           field_k["raster"]["bary_max_abs_err"]),
+                           field_k["raster"]["bary_max_abs_err"],
+                           *(r["raster"][f"{k}_max_abs_err"] for r in slam_k["rows"]
+                             for k in ("depth", "xyz", "rgb", "normal"))),
         "worst_abs_err": k1["worst_abs_err"],
         "worst_abs_err_training_shapes": train_k["kernels"]["worst_abs_err"],
         "max_winner_flips_training_shapes": train_k["kernels"]["max_winner_flips_of_common"],
         "training_shapes": train_rows,
         "bake_shape": bake_row, "bake_shape_vs_plain": field_k["raster"],
+        "tracker_shape": slam_rows,
+        "tracker_shape_vs_plain": [r["raster"] for r in slam_k["rows"]],
         "worst_abs_err_suite_full_frames": suite_k["worst_abs_err"],
         "max_winner_flips_suite_full_frames": suite_k["max_winner_flips_of_common"],
         "worst_abs_err_incl_winner_flips": k1["worst_abs_err_incl_winner_flips"],

@@ -105,12 +105,13 @@ def default_weights_dir():
     return os.path.join(root, "weights", "agnostic")
 
 
-def build_estimator(mesh, device=None, config=None, input_size=None, mode="learned"):
+def build_estimator(mesh, device=None, config=None, input_size=None, mode="learned",
+                    device_mesh=None):
     """``mode="learned"``: agnostic RefineNet + ScoreNet checkpoint with
     ``HybridScorer`` (weight 2.0). ``mode="geometric"``: ``GeometricRefiner``
     + ``GeometricScorer``; without a ``config`` it gets the schedule of
     ``run_pose --mode geometric`` (10 ICP iterations, then 8 more on the top
-    8)."""
+    8). ``device_mesh`` shards ``register``'s hypotheses."""
     from foundationpose_tpu_torch.engine.estimator import EstimatorConfig, FoundationPoseTorch
 
     device = resolve_device(device)
@@ -133,7 +134,8 @@ def build_estimator(mesh, device=None, config=None, input_size=None, mode="learn
     else:
         raise ValueError(f"mode must be 'learned' or 'geometric', got {mode!r}")
     return FoundationPoseTorch(
-        mesh, config=config, refiner=refiner, scorer=scorer, device=device
+        mesh, config=config, refiner=refiner, scorer=scorer, device=device,
+        device_mesh=device_mesh,
     )
 
 

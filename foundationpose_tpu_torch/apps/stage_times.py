@@ -22,6 +22,13 @@ K1r, and the rest — pose draws, augmentation, normalisation), forward (net
 and loss), backward and the optimiser, each between two synchronisations,
 beside the unwrapped step rate and the device's busy share.
 
+``--slam`` times the online model-free tracker at ``OnlineConfig()`` on the
+demo L-shape rendered at 480x640 along an orbit: a tracker ``step``
+(depth preprocessing, the K1s + K1r render of each ICP iteration, the
+observed warp, the ICP solve), a ``retrain`` (scene bounds, the field's 300
+steps, mesh extraction) and a pose-graph BA round (the host problem build,
+the Gauss-Newton iterations on the device).
+
 ``--field [--encoder hash]`` times one full-width step of the neural object
 field (``FieldConfig()``: 2048 rays x (128 + 128) samples) on a synthetic
 sphere scene: the ray draw and gather, sampling, the encoder's forward, the
@@ -30,7 +37,7 @@ optimisers, beside the unwrapped step rate (rays/s), the device's busy share
 and the kernel count of one step from the profiler.
 
 Usage: python -m foundationpose_tpu_torch.apps.stage_times [--mode geometric] [--funnel]
-       [--train] [--field [--encoder hash]]
+       [--train] [--field [--encoder hash]] [--slam]
 """
 
 from __future__ import annotations
@@ -43,40 +50,14 @@ import time
 
 import torch
 
-
-class StageTimer:
-    def __init__(self):
-        self.ms, self.calls, self._depth = {}, {}, 0
-
-    def wrap(self, owner, name, label):
-        fn = getattr(owner, name)
-
-        def timed(*a, **kw):
-            if self._depth:  # nested inside another timed stage: no double count
-                return fn(*a, **kw)
-            self._depth += 1
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                torch.cuda.synchronize()
-                self.ms[label] = self.ms.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
-                self.calls[label] = self.calls.get(label, 0) + 1
-                self._depth -= 1
-
-        setattr(owner, name, timed)
-        return lambda: setattr(owner, name, fn)
-
-    def reset(self):
-        self.ms, self.calls = {}, {}
+from foundationpose_tpu_torch.utils.profiling import StageTimer
 
 
 @contextlib.contextmanager
 def timed_stages(est):
     from foundationpose_tpu_torch.engine import crop, estimator, geometric
 
-    t = StageTimer()
+    t = StageTimer(device=est.device)
     undo = [
         t.wrap(estimator, "preprocess_depth", "preprocess (erode+bilateral+xyz)"),
         t.wrap(crop.raster_cuda, "setup_cuda", "render: K1s (face setup + tile bins)"),
@@ -105,7 +86,7 @@ def wall_ms(fn):
 
 
 def report(name, total_ms, unwrapped_ms, timer):
-    rows = {k: {"ms": v, "calls": timer.calls[k], "share": v / total_ms}
+    rows = {k: {"ms": v, "calls": timer.counts[k], "share": v / total_ms}
             for k, v in sorted(timer.ms.items(), key=lambda kv: -kv[1])}
     other = total_ms - sum(timer.ms.values())
     rows["other"] = {"ms": other, "calls": None, "share": other / total_ms}
@@ -164,12 +145,8 @@ def train_stage_times(card, n_meshes=8, steps=20, warm=5, input_size=160, device
             def stage(label, fn):
                 if timer is None:
                     return fn()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn()
-                torch.cuda.synchronize()
-                timer[label] = timer.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
-                return out
+                with timer(label):
+                    return fn()
 
             for q in opt.params:
                 q.grad = None
@@ -183,21 +160,21 @@ def train_stage_times(card, n_meshes=8, steps=20, warm=5, input_size=160, device
         for p in meshes[:warm]:  # warm-up: cuDNN algorithm choice, allocator
             step(p)
         unwrapped = wall_ms(lambda: [step(p) for p in meshes[warm:warm + steps]])
-        t = StageTimer()
+        t = StageTimer(device=device)
         undo = t.wrap(datagen.raster_cuda, "render_crops", "data: render (K1s + K1r)")
-        timer = {}
+        timer = StageTimer(device=device)
         try:
             wrapped = wall_ms(lambda: [step(p, timer) for p in meshes[warm + steps:]])
         finally:
             undo()
         rows = {"data: render (K1s + K1r)": t.ms["data: render (K1s + K1r)"] / steps,
                 "data: other (draws, augmentation, normalisation)":
-                    (timer["data"] - t.ms["data: render (K1s + K1r)"]) / steps}
-        rows.update({k: v / steps for k, v in timer.items() if k != "data"})
+                    (timer.ms["data"] - t.ms["data: render (K1s + K1r)"]) / steps}
+        rows.update({k: v / steps for k, v in timer.ms.items() if k != "data"})
         print(json.dumps({
             "call": f"{name} train step (batch {batch}, {input_size} px, float32)",
             "card": card, "steps": steps, "render_calls_per_step":
-                t.calls["data: render (K1s + K1r)"] / steps,
+                t.counts["data: render (K1s + K1r)"] / steps,
             "ms_per_step_unwrapped": unwrapped / steps,
             "steps_per_s_unwrapped": steps / (unwrapped / 1e3),
             "ms_per_step_with_stage_syncs": wrapped / steps,
@@ -239,16 +216,12 @@ def field_stage_times(card, encoder="triplane", steps=20, warm=10, device="cuda"
     r = NeRFRunner(cfg, *field_scene(), device=device)
     f = r.field
 
-    def step(timer=None, stages=None):
+    def step(timer=None):
         def stage(label, fn):
             if timer is None:
                 return fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            timer[label] = timer.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
-            return out
+            with timer(label):
+                return fn()
 
         f.zero_grad(set_to_none=True)
         draws = stage("ray draw + gather", r.draw)
@@ -262,11 +235,11 @@ def field_stage_times(card, encoder="triplane", steps=20, warm=10, device="cuda"
     for _ in range(warm):
         step()
     unwrapped = wall_ms(lambda: [step() for _ in range(steps)])
-    t = StageTimer()
+    t = StageTimer(device=device)
     undo = [t.wrap(runner_mod.sampling, "sample_rays", "sampling (ray/box, stratified, occupancy)"),
             t.wrap(f.grid, "forward", f"encoder forward ({encoder})"),
             t.wrap(f.mlp, "forward", "MLP forward (sigma + colour)")]
-    timer = {}
+    timer = StageTimer(device=device)
     try:
         wrapped = wall_ms(lambda: [step(timer) for _ in range(steps)])
     finally:
@@ -274,7 +247,7 @@ def field_stage_times(card, encoder="triplane", steps=20, warm=10, device="cuda"
             u()
     inner = sum(t.ms.values())
     rows = {k: v / steps for k, v in t.ms.items()}
-    for k, v in timer.items():
+    for k, v in timer.ms.items():
         rows[k] = (v - inner if k.startswith("forward") else v) / steps
     print(json.dumps({
         "call": f"field train step ({encoder}, {cfg.n_rand} rays x "
@@ -286,6 +259,85 @@ def field_stage_times(card, encoder="triplane", steps=20, warm=10, device="cuda"
         "stages_ms_per_step": dict(sorted(rows.items(), key=lambda kv: -kv[1])),
         "profiled_step": busy_share(step),
     }), flush=True)
+
+
+def slam_stage_times(card, frames=12, device="cuda"):
+    """Stage times of the online tracker: steps (no retrain inside them),
+    one retrain, three BA rounds."""
+    import numpy as np
+
+    from foundationpose_tpu_torch.apps import demo_synthetic as demo
+    from foundationpose_tpu_torch.core.poses import euler_matrix_np
+    from foundationpose_tpu_torch.engine import crop, estimator, geometric
+    from foundationpose_tpu_torch.evalsuite.scenes import HW_DEFAULT, K_DEFAULT
+    from foundationpose_tpu_torch.field import bounds
+    from foundationpose_tpu_torch.field.runner import NeRFRunner
+    from foundationpose_tpu_torch.ops import raster, raster_cuda
+    from foundationpose_tpu_torch.slam import ba
+    from foundationpose_tpu_torch.slam.online import ModelFreeTracker, OnlineConfig
+
+    mesh = demo.make_l_shape()
+    cams = np.tile(np.eye(4), (frames, 1, 1))
+    for i in range(frames):  # the orbit of tests/test_online.py:112-121
+        cams[i, :3, :3] = euler_matrix_np(0.0, 0.035 * i, 0.012 * i)[:3, :3]
+        cams[i, :3, 3] = cams[i, :3, :3] @ np.array([0.0, 0.0, -0.45])
+    out = raster_cuda.render_full_frame(raster.make_mesh_tensors(mesh, device=device),
+                                        np.linalg.inv(cams).astype(np.float32), K_DEFAULT,
+                                        HW_DEFAULT, use_light=False)
+    rgbs = (out["rgb"].cpu().numpy() * 255).astype(np.float32)
+    depths = out["depth"].cpu().numpy()
+    masks = out["mask"].cpu().numpy().astype(np.uint8)
+    trk = ModelFreeTracker(K_DEFAULT, OnlineConfig(retrain_every_keyframes=10**6), device=device)
+    trk.init(rgbs[0], depths[0], masks[0])
+    warm = 3
+    for f in range(1, warm):
+        trk.step(rgbs[f], depths[f], mask=masks[f])
+    half = (frames + warm) // 2
+    unwrapped = [wall_ms(lambda: trk.step(rgbs[f], depths[f], mask=masks[f]))
+                 for f in range(warm, half)]
+    t = StageTimer(device=device)
+    undo = [t.wrap(estimator, "preprocess_depth", "preprocess (erode+bilateral+xyz)"),
+            t.wrap(crop.raster_cuda, "setup_cuda", "render: K1s (face setup + tile bins)"),
+            t.wrap(crop.raster_cuda, "rasterize_cuda", "render: K1r (rasterizer)"),
+            t.wrap(crop.imops, "warp_crop_affine", "observed warp"),
+            t.wrap(geometric, "_point_to_plane_delta", "ICP solve (normal equations + 6x6 solve)")]
+    try:
+        total = sum(wall_ms(lambda: trk.step(rgbs[f], depths[f], mask=masks[f]))
+                    for f in range(half, frames))
+    finally:
+        for u in undo:
+            u()
+    n = frames - half
+    report(f"tracker step (4 ICP iterations, B=1 x 160 px), mean of {n}", total / n,
+           float(np.mean(unwrapped)), _per_call(t, n))
+    for label, owner_attrs in (
+            ("retrain (FieldConfig(n_step=300)) on %d keyframes" % len(trk.keyframes),
+             [(bounds, "compute_scene_bounds", "scene bounds (host)"),
+              (NeRFRunner, "train", "field training, 300 steps"),
+              (NeRFRunner, "extract_mesh", "mesh extraction (marching tetrahedra)")]),
+            ("pose-graph BA round (512 landmarks), mean of 3",
+             [(ba, "build_ba_problem", "problem build (host numpy)"),
+              (ba, "bundle_adjust", "Gauss-Newton, 8 iterations (device)")])):
+        t = StageTimer(device=device)
+        undo = [t.wrap(o, a, name) for o, a, name in owner_attrs]
+        try:
+            if label.startswith("retrain"):
+                total, n = wall_ms(trk.retrain), 1
+            else:
+                total, n = wall_ms(lambda: trk.run_pose_graph_ba(rounds=3)), 3
+        finally:
+            for u in undo:
+                u()
+        report(label, total / n, None, _per_call(t, n))
+    print(json.dumps({"card": card, "keyframes": len(trk.keyframes)}), flush=True)
+
+
+def _per_call(timer, n):
+    """The timer's stages divided by ``n`` calls (a view ``report`` reads)."""
+    t = StageTimer(device=timer.device)
+    for k, v in timer.totals.items():
+        t.totals[k], t.counts[k] = v / n, timer.counts[k] / n
+    return t
 
 
 def main(argv=None):
@@ -302,7 +354,16 @@ def main(argv=None):
                    help="time a neural-object-field train step at FieldConfig() widths")
     p.add_argument("--encoder", choices=["triplane", "hash"], default="triplane",
                    help="the field's positional encoder (with --field)")
+    p.add_argument("--slam", action="store_true",
+                   help="time the online tracker's step, retrain and pose-graph BA round")
     opts = p.parse_args(argv)
+    if opts.slam:
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True).stdout.strip()
+        print(json.dumps({"card": card, "torch": torch.__version__, "slam": True}), flush=True)
+        slam_stage_times(card)
+        return
     if opts.field:
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

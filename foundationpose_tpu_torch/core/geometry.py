@@ -1,8 +1,8 @@
 """Pose and camera geometry on torch tensors.
 
 Counterpart of foundationpose_tpu/core/geometry.py, as far as the ported
-path needs it: ``normalize``, ``hat``, ``so3_exp_map``, ``se3_exp_map``,
-``rotation_6d_to_matrix``, ``euler_matrix``, ``transform_pts``,
+path needs it: ``normalize``, ``hat``, ``so3_exp_map``, ``so3_log_map``,
+``se3_exp_map``, ``rotation_geodesic_distance``, ``rotation_6d_to_matrix``, ``euler_matrix``, ``transform_pts``,
 ``pose_to_egocentric_delta_pose``, ``egocentric_delta_pose_to_pose``,
 ``project_pts``,
 ``compute_crop_window_tf_batch``, ``depth2xyzmap``.
@@ -65,6 +65,34 @@ def so3_exp_map(log_rot):
     Kx = hat(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand_as(Kx)
     return eye + a[..., None, None] * Kx + b[..., None, None] * (Kx @ Kx)
+
+
+def so3_log_map(R):
+    """(..., 3, 3) -> (..., 3) axis-angle, with the Taylor branch
+    1/2 + theta^2/12 below theta = 1e-4."""
+    R = as_f32(R)
+    tr = R.diagonal(dim1=-2, dim2=-1).sum(dim=-1)
+    theta = torch.arccos(((tr - 1.0) / 2.0).clamp(-1.0, 1.0))
+    w_hat = torch.stack(
+        [R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]],
+        dim=-1,
+    )
+    small = theta < 1e-4
+    theta_safe = torch.where(small, torch.ones_like(theta), theta)
+    # w_hat = 2 sin(theta) * axis  =>  log = theta / (2 sin theta) * w_hat
+    scale = torch.where(
+        small, 0.5 + theta * theta / 12.0,
+        theta_safe / (2.0 * torch.sin(theta_safe)).clamp_min(1e-12),
+    )
+    return scale[..., None] * w_hat
+
+
+def rotation_geodesic_distance(R1, R2):
+    """arccos((tr(R1 R2^T) - 1) / 2), broadcasting, float32."""
+    R1 = as_f32(R1)
+    R2 = as_f32(R2, R1.device)
+    tr = (R1 @ R2.transpose(-1, -2)).diagonal(dim1=-2, dim2=-1).sum(dim=-1)
+    return torch.arccos(((tr - 1.0) / 2.0).clamp(-1.0, 1.0))
 
 
 def se3_exp_map(xi):

@@ -3,8 +3,9 @@
 The port's own copy of foundationpose_tpu/core/poses.py (``euler_matrix_np``,
 ``symmetry_tfs_from_info``, ``rotation_geodesic_distance_np``,
 ``cluster_poses``, ``make_rotation_grid``).
-``cluster_poses`` is the numpy greedy pass: it runs once per object on a few
-hundred poses.
+``cluster_poses`` runs the greedy pass in the port's host C++ library
+(``native/cluster.cpp``, built with g++ at first use); ``cluster_poses_plain``
+is the same pass in numpy, the plain version the library is held against.
 """
 
 from __future__ import annotations
@@ -64,15 +65,28 @@ def rotation_geodesic_distance_np(R1, R2):
     return np.arccos(np.clip((tr - 1.0) / 2.0, -1.0, 1.0))
 
 
-def cluster_poses(angle_diff_deg, dist_diff, poses, symmetry_tfs=None):
-    """Greedy pose dedup: scan poses in order; a pose is dropped iff some
-    kept pose is within ``dist_diff`` in translation AND within
-    ``angle_diff_deg`` geodesic rotation for at least one symmetry transform
-    applied on the right. Returns the kept (M,4,4) poses."""
+def _as_pose_arrays(poses, symmetry_tfs):
     poses = np.ascontiguousarray(np.asarray(poses, dtype=np.float64))
     if symmetry_tfs is None:
         symmetry_tfs = np.eye(4)[None]
-    symmetry_tfs = np.ascontiguousarray(np.asarray(symmetry_tfs, dtype=np.float64))
+    return poses, np.ascontiguousarray(np.asarray(symmetry_tfs, dtype=np.float64))
+
+
+def cluster_poses(angle_diff_deg, dist_diff, poses, symmetry_tfs=None):
+    """Greedy pose dedup through the host library: scan poses in order; a
+    pose is dropped iff some kept pose is within ``dist_diff`` in translation
+    AND within ``angle_diff_deg`` geodesic rotation for at least one symmetry
+    transform applied on the right. Returns the kept (M,4,4) poses. Raises
+    when the library cannot be built."""
+    from foundationpose_tpu_torch.native import cluster_poses_native
+
+    return cluster_poses_native(angle_diff_deg, dist_diff,
+                                *_as_pose_arrays(poses, symmetry_tfs))
+
+
+def cluster_poses_plain(angle_diff_deg, dist_diff, poses, symmetry_tfs=None):
+    """``cluster_poses`` in numpy (the plain version)."""
+    poses, symmetry_tfs = _as_pose_arrays(poses, symmetry_tfs)
 
     radian_thres = angle_diff_deg / 180.0 * np.pi
     # all symmetric variants of each rotation: (N,S,3,3)

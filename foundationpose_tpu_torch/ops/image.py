@@ -1,7 +1,10 @@
 """Image-space ops: depth-map stencils and the crop warp.
 
 Counterpart of foundationpose_tpu/ops/image.py (``dilate_mask``,
-``erode_depth``, ``bilateral_filter_depth``, ``warp_crop_affine``). The
+``erode_depth``, ``bilateral_filter_depth``, ``warp_perspective``,
+``warp_crop_affine``). ``warp_perspective`` is the general 3x3 resample;
+no path of the port calls it, and the tests hold ``warp_crop_affine``
+against it. The
 stencils are 5x5 shift stacks accumulated in the same order as the JAX
 functions; the warp is the gather form of the separable resample (a gather is
 cheap on a GPU), with sample positions bit-identical to the ones the JAX
@@ -85,6 +88,48 @@ def bilateral_filter_depth(depth, radius=2, zfar=100.0, sigma_d=2.0, sigma_r=100
     return torch.where(
         (wsum > 0) & (mean_cnt > 0), acc / wsum.clamp_min(1e-12), torch.zeros_like(d)
     )
+
+
+def warp_perspective(img, tf, out_size, mode="bilinear"):
+    """Resample ``img`` (H,W,C) or (H,W) under 3x3 transforms ``tf`` (B,3,3)
+    or (3,3) that map SOURCE pixel coords to DESTINATION pixel coords. Output
+    pixel (i,j) samples the source at ``tf^-1 @ (j, i, 1)`` (dehomogenised) in
+    index space; reads outside are zero. Output (B,out_h,out_w,C) float32."""
+    tf = as_f32(tf)
+    img = as_f32(img, tf.device)
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    single = tf.ndim == 2
+    if single:
+        tf = tf[None]
+    H, W, _ = img.shape
+    out_h, out_w = out_size
+    inv = torch.linalg.inv(tf)  # dest -> src
+    ii, jj = torch.meshgrid(torch.arange(out_h, dtype=torch.float32, device=tf.device),
+                            torch.arange(out_w, dtype=torch.float32, device=tf.device),
+                            indexing="ij")
+    dst = torch.stack([jj, ii, torch.ones_like(jj)], dim=-1)  # (h,w,3)
+    src = dst[None] @ inv[:, None].transpose(-1, -2)  # (B,h,w,3)
+    z = src[..., 2]
+    x = src[..., 0] / z.abs().clamp_min(1e-12) * torch.sign(z)
+    y = src[..., 1] / z.abs().clamp_min(1e-12) * torch.sign(z)
+    if mode == "nearest":
+        taps = [(torch.round(x), torch.round(y), None)]
+    else:
+        x0, y0 = torch.floor(x), torch.floor(y)
+        tx, ty = x - x0, y - y0
+        taps = [(x0 + dx, y0 + dy, (tx if dx else 1 - tx) * (ty if dy else 1 - ty))
+                for dy in (0, 1) for dx in (0, 1)]
+    out = 0.0
+    for xi, yi, w in taps:
+        inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        val = img[yi.clamp(0, H - 1).long(), xi.clamp(0, W - 1).long()]
+        val = torch.where(inb[..., None], val, torch.zeros_like(val))
+        out = out + (val if w is None else val * w[..., None])
+    if squeeze:
+        out = out[..., 0]
+    return out[0] if single else out
 
 
 def _axis_taps(pos, size, mode):

@@ -13,6 +13,13 @@ that the chains agree within float rounding (1 mm, 0.01 rad) on every frame
 up to the first one the JAX package itself loses (ADD-S above 10 % of the
 diameter), and reports that frame.
 
+The second test makes the same comparison at full resolution (480x640, the
+suite's own intrinsics), where ``track_one``'s 224 px pre-crop window and the
+full-frame depth preprocessing come into play, over frame 0's ``register``
+and the first three tracked frames. It keeps the quick grid: the full grid of
+252 hypotheses at full width is a configuration for the card, and the card's
+machine has no JAX.
+
     env JAX_PLATFORMS=cpu python -m pytest tests/test_torch_clutter_track.py -m slow -s
 """
 
@@ -31,8 +38,10 @@ def _rot_diff(a, b):
     return float(np.arccos(np.clip(c, -1, 1)))
 
 
-@pytest.mark.slow
-def test_compound_clutter_track_chain_matches_jax():
+def _chains(scale, hw, n_frames=None):
+    """Both packages' poses along compound_clutter's trajectory (frame 0
+    registered, the rest tracked) at ``hw`` with the suite's intrinsics
+    scaled by ``scale``. Returns (rows, diameter, scene name)."""
     from foundationpose_tpu.core import metrics as jmetrics
     from foundationpose_tpu.engine.estimator import EstimatorConfig as JConfig
     from foundationpose_tpu.engine.estimator import FoundationPoseTPU
@@ -51,9 +60,9 @@ def test_compound_clutter_track_chain_matches_jax():
     wdir = os.path.join(ROOT, "weights", "agnostic")
     spec = [s for s in jscenes.build_suite() if s.name == "compound_clutter"][0]
     K = jscenes.K_DEFAULT.copy()
-    K[:2] *= 0.25
-    r = jscenes.SceneRenderer(spec, K=K, hw=(120, 160))
-    traj = r.track_trajectory()
+    K[:2] *= scale
+    r = jscenes.SceneRenderer(spec, K=K, hw=hw)
+    traj = r.track_trajectory()[:n_frames]
     frames = [r.render(gt) for gt in traj]
     grid = dict(min_n_views=12, inplane_step=120)
 
@@ -87,9 +96,23 @@ def test_compound_clutter_track_chain_matches_jax():
                      "drot_rad": _rot_diff(jp, pp),
                      "adds_jax_mm": float(jmetrics.adds_err(jp, gt, spec.mesh.vertices)) * 1000,
                      "adds_port_mm": float(jmetrics.adds_err(pp, gt, spec.mesh.vertices)) * 1000})
+    return rows, diameter, spec.name
+
+
+def _judge(rows, diameter, name, hw):
     parted = next((r_ for r_ in rows if r_["dt_mm"] > 1.0 or r_["drot_rad"] > 0.01), None)
     lost = next((r_ for r_ in rows if r_["adds_jax_mm"] > 100 * diameter), None)
-    print(json.dumps({"scene": spec.name, "diameter_mm": diameter * 1000, "frames": rows,
-                      "first_parted": parted, "first_lost_by_jax": lost}))
+    print(json.dumps({"scene": name, "hw": list(hw), "diameter_mm": diameter * 1000,
+                      "frames": rows, "first_parted": parted, "first_lost_by_jax": lost}))
     last = lost["frame"] if lost else len(rows)
     assert parted is None or parted["frame"] >= last, (parted, lost)
+
+
+@pytest.mark.slow
+def test_compound_clutter_track_chain_matches_jax():
+    _judge(*_chains(0.25, (120, 160)), (120, 160))
+
+
+@pytest.mark.slow
+def test_compound_clutter_full_resolution_matches_jax():
+    _judge(*_chains(1.0, (480, 640), n_frames=4), (480, 640))

@@ -271,8 +271,9 @@ def test_register_translation_only_fallback(world):
 
 
 def test_device_rule_and_unported_settings(world, tmp_path):
-    """``device=None`` raises without a card; what is still to be ported
-    (``device_mesh``) is refused; the funnel settings, ``sync=False``,
+    """``device=None`` raises without a card; a ``device_mesh`` (refused
+    until the multi-device slice) is accepted on the estimator's device type
+    and refused on another; the funnel settings, ``sync=False``,
     ``--mode geometric``, debug dumps and ``--weights``, refused by the first
     slices of the port, are accepted now."""
     mesh = world["scene"]["mesh"]
@@ -285,8 +286,12 @@ def test_device_rule_and_unported_settings(world, tmp_path):
     E = est_mod.EstimatorConfig
     parts = dict(refiner=world["est"].refiner, scorer=world["est"].scorer, device="cpu")
     assert est_mod.FoundationPoseTorch(mesh, config=E(debug=3), **parts).cfg.debug == 3
-    with pytest.raises(NotImplementedError):
-        est_mod.FoundationPoseTorch(mesh, device_mesh=object(), **parts)
+    from foundationpose_tpu_torch.parallel.mesh import make_device_mesh
+
+    one = make_device_mesh(device="cpu")
+    assert est_mod.FoundationPoseTorch(mesh, device_mesh=one, **parts).device_mesh is one
+    with pytest.raises(ValueError, match="device mesh"):
+        est_mod.FoundationPoseTorch(mesh, device_mesh=make_device_mesh(device="meta"), **parts)
     for cfg in (E(funnel_top_k=16), E(funnel_coarse_size=112), E(funnel_coarse_faces=512)):
         funnel = est_mod.FoundationPoseTorch(mesh, config=cfg, **parts)
         # 36 faces are under any face budget here: the coarse tensors are a

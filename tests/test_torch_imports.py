@@ -26,7 +26,7 @@ def _sources():
     for d, _, names in os.walk(PKG):
         if "_build" in d or "__pycache__" in d:
             continue
-        files += [os.path.join(d, n) for n in names if n.endswith((".py", ".cu", ".cuh"))]
+        files += [os.path.join(d, n) for n in names if n.endswith((".py", ".cu", ".cuh", ".cpp"))]
     return sorted(files)
 
 
@@ -35,8 +35,34 @@ def test_sources_found():
     for must in ("chip_smoke.py", "foundationpose_tpu_torch/ops/raster_cuda.py",
                  "foundationpose_tpu_torch/csrc/raster.cu",
                  "foundationpose_tpu_torch/engine/estimator.py",
-                 "foundationpose_tpu_torch/field/runner.py"):
+                 "foundationpose_tpu_torch/field/runner.py",
+                 "foundationpose_tpu_torch/slam/ba.py", "foundationpose_tpu_torch/slam/online.py",
+                 "foundationpose_tpu_torch/parallel/mesh.py",
+                 "foundationpose_tpu_torch/parallel/multihost.py",
+                 "foundationpose_tpu_torch/utils/profiling.py",
+                 "foundationpose_tpu_torch/native/__init__.py",
+                 "foundationpose_tpu_torch/native/cluster.cpp"):
         assert must in names
+
+
+def _module_files(pkg):
+    out = set()
+    for d, _, names in os.walk(os.path.join(ROOT, pkg)):
+        if "_build" in d or "__pycache__" in d:
+            continue
+        out |= {os.path.relpath(os.path.join(d, n), os.path.join(ROOT, pkg)) for n in names
+                if n.endswith((".py", ".cpp"))}
+    return out
+
+
+def test_every_module_of_the_jax_package_has_a_counterpart():
+    """A diff of the two packages' module lists shows only the port's own
+    additions and two modules with no counterpart to write: the Pallas
+    rasterizer (the port's is ``ops/raster_cuda.py`` + ``csrc/``) and XLA's
+    persistent compile cache (eager PyTorch compiles nothing; the port's
+    kernels are cached in ``_build/``)."""
+    missing = _module_files("foundationpose_tpu") - _module_files("foundationpose_tpu_torch")
+    assert missing == {"ops/raster_pallas.py", "utils/jaxcache.py"}, missing
 
 
 @pytest.mark.parametrize("path", [os.path.relpath(f, ROOT) for f in _sources()])
