@@ -42,10 +42,16 @@ bf16 nets from the shipped object-agnostic checkpoint where a net runs):
   retrain, drift gated), pose-graph BA on its keyframes' perturbed true
   poses, and ``finalize`` with a texture bake; K1s + K1r held at the
   tracker's B = 1 x 160 px shape;
-- two ranks on the card over gloo: the sharded ``register`` and
-  ``bundle_adjust`` against the unsharded runs, and the same ranks over nccl
-  (expected to be refused: two ranks on one device). This checks the
-  collectives' code path, not NCCL and not more than one card.
+- two ranks on the card over gloo, each sharded program of the port against
+  the same program unsharded: ``register`` (its hypotheses, its row-sharded
+  preprocess and its scorer split), ``bundle_adjust``, the data-parallel
+  refiner step (160 px, global batch 32), the field step (``FieldConfig()``,
+  rays split; triplane and hash), the 4-object tracker split 2 + 2, K1s + K1r
+  at every rank's shard shapes, and a scaling table (register hyp/s, field
+  rays/s at world 1 and 2); then the same ranks over nccl (expected to be
+  refused: two ranks on one device). This checks the collectives' code path,
+  not NCCL and not more than one card (``md_cards`` runs the phase over nccl
+  with one rank per card).
 
 It builds every CUDA kernel of those paths (K1s: face setup and tile binning,
 K1r: the crop rasterizer) from the sources in this checkout, holds each
@@ -920,15 +926,11 @@ MULTI_PERTURB_T = (0.006, -0.005, 0.008)   # metres
 MULTI_PERTURB_W = (0.04, -0.05, 0.03)      # axis-angle, rad (~4 degrees)
 
 
-def run_multi(torch, demo, metrics, raster, raster_cuda, scene, smi):
-    """Four objects, each rendered into its own 480x640 stream at a known
-    pose; the tracker starts from poses perturbed by ~11 mm and ~4 degrees
-    and takes one step of two refine iterations with the shipped RefineNet.
-    Each iteration launches each kernel once per object."""
+def multi_inputs(demo, raster, scene):
+    """The multi-object phase's four objects, each rendered into its own
+    480x640 stream at a known pose, and the start poses ~11 mm and ~4 degrees
+    off. Returns (meshes, names, true poses, rgbs, depths, Ks, start poses)."""
     from foundationpose_tpu_torch.core import geometry as geo, meshio
-    from foundationpose_tpu_torch.engine.multi import MultiObjectTracker, stack_mesh_tensors
-    from foundationpose_tpu_torch.engine.refiner import PoseRefiner
-    from foundationpose_tpu_torch.models.agnostic import load_agnostic
 
     box = meshio.make_box((0.10, 0.07, 0.05))
     box.vertex_colors = np.clip(128 + 1500 * box.vertices, 0, 255).astype(np.uint8)
@@ -943,13 +945,24 @@ def run_multi(torch, demo, metrics, raster, raster_cuda, scene, smi):
             raster.make_mesh_tensors(mesh, device="cuda"), gt, scene["K"], scene["hw"])
         rgbs.append(rgb)
         depths.append(depth)
-    rgbs, depths = np.stack(rgbs), np.stack(depths)
-    Ks = np.stack([scene["K"]] * 4)
     start = gts.copy()
     start[:, :3, 3] += MULTI_PERTURB_T
     dR = geo.so3_exp_map(np.float32([MULTI_PERTURB_W]))[0].numpy().astype(np.float64)
     start[:, :3, :3] = dR @ start[:, :3, :3]
+    return (meshes, names, gts, np.stack(rgbs), np.stack(depths), np.stack([scene["K"]] * 4),
+            start)
 
+
+def run_multi(torch, demo, metrics, raster, raster_cuda, scene, smi):
+    """Four objects, each rendered into its own 480x640 stream at a known
+    pose; the tracker starts from poses perturbed by ~11 mm and ~4 degrees
+    and takes one step of two refine iterations with the shipped RefineNet.
+    Each iteration launches each kernel once per object."""
+    from foundationpose_tpu_torch.engine.multi import MultiObjectTracker, stack_mesh_tensors
+    from foundationpose_tpu_torch.engine.refiner import PoseRefiner
+    from foundationpose_tpu_torch.models.agnostic import load_agnostic
+
+    meshes, names, gts, rgbs, depths, Ks, start = multi_inputs(demo, raster, scene)
     refiner, _, _ = load_agnostic(demo.default_weights_dir(), device="cuda")
     tracker = MultiObjectTracker(meshes, refiner=refiner, device="cuda")
     if tracker.refiner.cfg.input_size != S \
@@ -1863,6 +1876,45 @@ def bake_render_calls(texture, n_faces, hw):
     return -(-FIELD_VIEWS // texture._views_per_call(n_faces, hw, texture.BINS_BUDGET))
 
 
+def field_views(demo, raster, raster_cuda):
+    """The field phase's frames: the demo's L-shape (position-coded vertex
+    colours) rendered unlit through K1 at 480x640 from FIELD_VIEWS icosphere
+    views FIELD_DIST away, as the reader gives them back (8-bit rgb,
+    millimetre depth)."""
+    from foundationpose_tpu_torch.core import icosphere
+    from foundationpose_tpu_torch.evalsuite.scenes import HW_DEFAULT, K_DEFAULT
+
+    K, hw = K_DEFAULT, tuple(HW_DEFAULT)
+    mesh = demo.make_l_shape()
+    v = mesh.vertices
+    mesh.vertex_colors = ((v - v.min(0)) / np.ptp(v, axis=0) * 190 + 40).astype(np.uint8)
+    cams = icosphere.sample_views_icosphere(n_views=FIELD_VIEWS)[:FIELD_VIEWS]
+    cams[:, :3, 3] = cams[:, :3, 3] * FIELD_DIST + mesh.bounds.mean(axis=0)  # cam_in_ob
+    ob_in_cams = np.linalg.inv(cams)
+    frames = raster_cuda.render_full_frame(raster.make_mesh_tensors(mesh, device="cuda"),
+                                           ob_in_cams.astype(np.float32), K, hw,
+                                           use_light=False)
+    return {"mesh": mesh, "cams": cams, "ob_in_cams": ob_in_cams, "K": K, "hw": hw,
+            "images": (frames["rgb"].cpu().numpy() * 255).astype(np.uint8),
+            "depth_mm": np.rint(frames["depth"].cpu().numpy() * 1000).astype(np.uint16),
+            "masks": frames["mask"].cpu().numpy()}
+
+
+def field_runner_inputs(images, depth_mm, masks, ob_in_cams, K):
+    """``NeRFRunner``'s arguments for the field phase's frames, as run_field
+    builds them: scene bounds, normalised frames, the fused cloud."""
+    from foundationpose_tpu_torch.field import bounds as bounds_mod
+
+    depths = (depth_mm.astype(np.float64) / 1e3).astype(np.float32)
+    rmasks = masks.astype(np.uint8)
+    poses_in = np.linalg.inv(ob_in_cams)  # as run_field inverts the annotated poses
+    translation, sc_factor, cluster = bounds_mod.compute_scene_bounds(depths, rmasks, K, poses_in)
+    rgbs_n, depths_n, masks_n, poses_n = bounds_mod.preprocess_data(
+        images.astype(np.float32), depths, rmasks, poses_in, sc_factor, translation)
+    return (rgbs_n, depths_n, masks_n, poses_n, K, (cluster + translation) * sc_factor,
+            sc_factor, translation)
+
+
 def run_field_phase(torch, demo, raster, raster_cuda, smi):
     """The neural object field through ``run_field.main`` at ``FieldConfig()``
     widths (2048 rays x (128 + 128) samples, triplane encoder, 3 mm mesh,
@@ -1880,9 +1932,8 @@ def run_field_phase(torch, demo, raster, raster_cuda, smi):
     from scipy.spatial import cKDTree
 
     from foundationpose_tpu_torch.apps import run_field
-    from foundationpose_tpu_torch.core import icosphere, meshio
-    from foundationpose_tpu_torch.evalsuite.scenes import HW_DEFAULT, K_DEFAULT
-    from foundationpose_tpu_torch.field import bounds as bounds_mod, texture
+    from foundationpose_tpu_torch.core import meshio
+    from foundationpose_tpu_torch.field import texture
     from foundationpose_tpu_torch.field.runner import FieldConfig, NeRFRunner
     from foundationpose_tpu_torch.io import png
 
@@ -1890,21 +1941,10 @@ def run_field_phase(torch, demo, raster, raster_cuda, smi):
     blocked = ("cv2", "PIL", "sklearn", "yaml")
     present = {n: subprocess.run([sys.executable, "-c", f"import {n}"], capture_output=True,
                                  timeout=120).returncode == 0 for n in blocked}
-    K, hw = K_DEFAULT, tuple(HW_DEFAULT)
-    mesh = demo.make_l_shape()
-    v = mesh.vertices
-    mesh.vertex_colors = ((v - v.min(0)) / np.ptp(v, axis=0) * 190 + 40).astype(np.uint8)
+    views = field_views(demo, raster, raster_cuda)
+    mesh, cams, ob_in_cams, K, hw, images, depth_mm, masks = (views[k] for k in (
+        "mesh", "cams", "ob_in_cams", "K", "hw", "images", "depth_mm", "masks"))
     diameter = centred_diameter(meshio, mesh)
-    centre = mesh.bounds.mean(axis=0)
-    cams = icosphere.sample_views_icosphere(n_views=FIELD_VIEWS)[:FIELD_VIEWS]
-    cams[:, :3, 3] = cams[:, :3, 3] * FIELD_DIST + centre  # cam_in_ob, looking at the centre
-    ob_in_cams = np.linalg.inv(cams)
-    mt = raster.make_mesh_tensors(mesh, device="cuda")
-    frames = raster_cuda.render_full_frame(mt, ob_in_cams.astype(np.float32), K, hw,
-                                           use_light=False)
-    images = (frames["rgb"].cpu().numpy() * 255).astype(np.uint8)
-    depth_mm = np.rint(frames["depth"].cpu().numpy() * 1000).astype(np.uint16)
-    masks = frames["mask"].cpu().numpy()
     rng = np.random.default_rng(0)
     surf, surf_n = outer_surface_samples(mesh, 400_000, rng)
     tree = cKDTree(surf)
@@ -2019,15 +2059,9 @@ def run_field_phase(torch, demo, raster, raster_cuda, smi):
 
     # ---- the hash encoder at its defaults, the same rays (the frames as the
     # reader gives them back: lossless PNGs, millimetre depth)
-    depths = (depth_mm.astype(np.float64) / 1e3).astype(np.float32)
-    rmasks = masks.astype(np.uint8)
-    poses_in = np.linalg.inv(ob_in_cams)  # as run_field inverts the annotated poses
-    translation, sc_factor, cluster = bounds_mod.compute_scene_bounds(depths, rmasks, K, poses_in)
-    rgbs_n, depths_n, masks_n, poses_n = bounds_mod.preprocess_data(
-        images.astype(np.float32), depths, rmasks, poses_in, sc_factor, translation)
     hcfg = FieldConfig(encoder="hash")
-    hr = NeRFRunner(hcfg, rgbs_n, depths_n, masks_n, poses_n, K,
-                    (cluster + translation) * sc_factor, sc_factor, translation, device="cuda")
+    hr = NeRFRunner(hcfg, *field_runner_inputs(images, depth_mm, masks, ob_in_cams, K),
+                    device="cuda")
     if not torch.equal(hr.rays, runner.rays):
         fail("field: the hash runner's rays differ from run_field's")
     table = hr.field.grid.table
@@ -2076,7 +2110,7 @@ def run_field_phase(torch, demo, raster, raster_cuda, smi):
         card=smi)
     return ({"K1s": bake_launches["K1s"] + gt_counts["K1s"],
              "K1r": bake_launches["K1r"] + gt_counts["K1r"]},
-            {"setup": srow, "raster": krow, "time": bake_time})
+            {"setup": srow, "raster": krow, "time": bake_time}, views)
 
 
 SLAM_FRAMES = 40           # the orbit's frames at most; it stops after the first retrain
@@ -2311,37 +2345,86 @@ def run_slam_phase(torch, demo, raster, raster_cuda, smi):
 
 
 MD_WORLD = 2               # ranks sharing the one card
-MD_TIMEOUT = 300           # seconds a launch of the ranks may take
+MD_TIMEOUT = 600           # seconds a launch of the ranks may take
 MD_REGISTER_TOL = 1e-3     # tests/test_sharded_register.py:76-84
+MD_SCORE_TOL = 1e-4        # the sharded scorer on the same 256 poses, float32 nets
 MD_BA_TOL = 1e-4           # tests/test_ba.py:162
+MD_LOSS_RTOL = 1e-4        # __graft_entry__.py:140-143
+# An all-reduced gradient against the single-process one: largest difference
+# over the gradient's norm (only the order of summation differs; float32
+# rounding of a sum of ~1e6 terms stays far below it)
+MD_GRAD_TOL = 1e-5
+# The sharded multi-object step's poses (float32 RefineNet): against an
+# unsharded tracker over the rank's own objects — the same RefineNet batch —
+# and against the unsharded tracker over all four. cuDNN's float32
+# convolutions round otherwise at a batch of 2 crops than of 4, and two refine
+# iterations carry it into the poses (H100: 1.5e-5 with 2 + 2 objects), so
+# the second gate is the multi_object phase's own for a step that differs in
+# rounding only (1e-4, against the plain rasterizer).
+MD_MULTI_TOL = 1e-5
+MD_MULTI_BATCH_TOL = 1e-4
+MD_DP_STEPS = 3            # data-parallel refiner step: steps of each run
+MD_DP_BATCH = 32           # its global batch (train_agnostic --batch)
+MD_FIELD_STEPS = 5         # sharded field steps, each against the unsharded step
+MD_TIMED = 10              # steps or calls timed per figure
 
 
-def md_rank(rank, coord, tmp, backend):
-    """One rank of the multi_device phase (run in its own process). With
-    ``backend="nccl"`` it only tries one all_reduce; with gloo it runs the
-    unsharded and the sharded learned-hybrid ``register`` and BA and writes
-    what it got to ``tmp``."""
-    import torch
+class Stages:
+    """Wall ms per named stage, each closed by a device synchronise."""
 
-    from foundationpose_tpu_torch.apps import demo_synthetic as demo
-    from foundationpose_tpu_torch.ops import raster_cuda
-    from foundationpose_tpu_torch.parallel import multihost
-    from foundationpose_tpu_torch.slam import ba as ba_mod
+    def __init__(self, torch):
+        self.torch, self.ms, self.t = torch, {}, None
 
-    multihost.initialize(coord, num_processes=MD_WORLD, process_id=rank, device="cuda",
-                         backend=backend)
-    if backend == "nccl":
-        x = torch.ones(4, device="cuda")
-        torch.distributed.all_reduce(x)
-        torch.cuda.synchronize()
-        print(f"RANK{rank}_NCCL_ALL_REDUCE {x.tolist()}", flush=True)
-        return
-    mesh = multihost.make_global_mesh(("batch",))
-    out = {"device": str(multihost.local_device()), "backend": torch.distributed.get_backend(),
-           "world": multihost.process_count()}
-    scene = demo.make_scene((480, 640), device="cuda")
+    def start(self):
+        self.torch.cuda.synchronize()
+        self.t = time.perf_counter()
+
+    def mark(self, name):
+        self.torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.ms[name] = self.ms.get(name, 0.0) + (now - self.t) * 1e3
+        self.t = now
+
+    def mean(self, n):
+        return {k: v / n for k, v in self.ms.items()}
+
+
+def mean_ms(torch, fn, n):
+    """Mean wall ms of ``n`` calls of ``fn`` after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def md_kernels(torch, raster, raster_cuda, mt, poses, K, tfs, cull, normals, case, light=True):
+    """K1s + K1r against their plain versions at one of a rank's shard
+    shapes (exits on a disagreement); returns the row's summary."""
+    tag = {"case": case, "batch": f"B{poses.shape[0]}", "cull": cull}
+    srow, scratch = compare_setup(raster, raster_cuda, torch, mt, poses, K, tfs, cull, tag)
+    kw = dict(out_hw=(S, S), backface_cull=cull, with_normal=normals, use_light=light)
+    krow = compare_with_plain(raster, raster_cuda, torch, mt, poses, K, tfs, kw,
+                              {**tag, "with_normal": normals}, scratch)
+    return {**tag, "faces": srow["faces"], "K1s_vtab_max_abs_err": srow["vtab_max_abs_err"],
+            "K1s_bins_agree": srow["bins_agree"], "mask_agree": krow["mask_agree"],
+            "winner_flips_of_common": krow["winner_flips_of_common"],
+            **{k: v for k, v in krow.items() if k.endswith("_max_abs_err")}}
+
+
+def md_register(torch, demo, raster, raster_cuda, multihost, mesh, scene, out, res):
+    """The learned-hybrid ``register`` unsharded and sharded, with the shipped
+    bf16 nets and float32 copies; the row-sharded preprocess against the
+    unsharded one; the sharded scorer on the same poses; K1 at the rank's
+    refine and score shards."""
+    from foundationpose_tpu_torch.core import geometry as geo
+    from foundationpose_tpu_torch.engine.estimator import preprocess_depth
+    from foundationpose_tpu_torch.parallel.mesh import shard_batch, shard_rows
+
     args = (scene["K"], scene["rgb"], scene["depth"], scene["mask"])
-    res = {}
+    ests = {}
     for dtype in ("bfloat16", "float32"):
         for kind, dm in (("one", None), ("sharded", mesh)):
             est = demo.build_estimator(scene["mesh"], device="cuda", device_mesh=dm)
@@ -2356,8 +2439,58 @@ def md_rank(rank, coord, tmp, backend):
             out[f"{tag}_ms"] = ms
             res.update({f"{tag}_pose": pose, f"{tag}_poses": est.poses,
                         f"{tag}_scores": est.scores, f"{tag}_order": est.hyp_order})
+            ests[tag] = est
     out["n_grid"] = int(len(est.rot_grid))
     out["padded_to"] = out["n_grid"] + (-out["n_grid"]) % est._hyp_quantum()
+
+    # ---- the full-frame preprocess, rows sharded with the halo, bit for bit
+    K_t = torch.tensor(scene["K"], dtype=torch.float32, device="cuda")
+    depth_t = torch.tensor(scene["depth"], dtype=torch.float32, device="cuda")
+    d1, x1 = preprocess_depth(depth_t, K_t)
+    d2, x2 = preprocess_depth(depth_t, K_t, mesh)
+    out["preprocess"] = {
+        "bit_equal": bool(torch.equal(d1, d2) and torch.equal(x1, x2)),
+        "rows_per_rank": depth_t.shape[0] // mesh.size("batch"),
+        "ms_unsharded": mean_ms(torch, lambda: preprocess_depth(depth_t, K_t), MD_TIMED),
+        "ms_sharded": mean_ms(torch, lambda: preprocess_depth(depth_t, K_t, mesh), MD_TIMED)}
+
+    # ---- the scorer on the same 256 poses (the float32 run's ranked poses,
+    # padded as register pads them), sharded against unsharded
+    e = ests["sharded_float32"]
+    poses = np.concatenate([e.poses, e.poses[:out["padded_to"] - out["n_grid"]]])
+    poses_t = torch.tensor(poses, dtype=torch.float32, device="cuda")
+    rgb_t = torch.tensor(scene["rgb"], dtype=torch.float32, device="cuda")
+    out["scorer"] = {}
+    for dtype in ("float32", "bfloat16"):
+        sc = ests[f"sharded_{dtype}"]
+        call = lambda dm=None: sc.scorer.score(  # noqa: E731
+            sc.mesh_tensors, rgb_t, x1, K_t, poses_t, float(sc.diameter), device_mesh=dm)
+        out["scorer"][dtype] = {
+            "max_abs_diff": (call() - call(mesh)).abs().max().item(),
+            "ms_unsharded": mean_ms(torch, call, 3),
+            "ms_sharded": mean_ms(torch, lambda: call(mesh), 3)}
+
+    # ---- K1 at this rank's shard shapes: the refine and learned-score slice
+    # (no normals, culled as the watertight mesh is), the geometric score's
+    # slice with its wrapped one-hypothesis halo (with normals)
+    e = ests["sharded_bfloat16"]
+    cull, r = e.refiner.cfg.backface_cull, mesh.index("batch")
+    rows = []
+    for name, p, normals in (("refine / learned-score shard", shard_batch(mesh, poses_t), False),
+                             ("geometric-score shard + halo",
+                              shard_rows(mesh, poses_t, 1, wrap=True)[0], True)):
+        tfs = geo.compute_crop_window_tf_batch(p, K_t, e.refiner.cfg.crop_ratio,
+                                               float(e.diameter), (S, S))
+        rows.append(md_kernels(torch, raster, raster_cuda, e.mesh_tensors, p, K_t, tfs, cull,
+                               normals, f"multi_device rank {r}: register {name}"))
+    out["kernels"] = rows
+
+
+def md_ba(torch, mesh, tmp, out, res):
+    """``bundle_adjust`` on the slam phase's keyframe problem, unsharded and
+    with the landmarks split."""
+    from foundationpose_tpu_torch.slam import ba as ba_mod
+
     p = np.load(os.path.join(tmp, "ba.npz"))
     prob = [p[k] for k in ("poses", "X", "kf", "pt", "w", "n")]
     cfg = ba_mod.BAConfig()
@@ -2367,6 +2500,285 @@ def md_rank(rank, coord, tmp, backend):
         res.update({f"ba_{kind}_poses": poses.cpu().numpy(), f"ba_{kind}_X": X.cpu().numpy(),
                     f"ba_{kind}_costs": costs.cpu().numpy()})
         out[f"ba_{kind}_ms"] = ms
+
+
+def md_dp_refiner(torch, raster, raster_cuda, mesh, out, res):
+    """The data-parallel refiner step at the training phase's width (160 px,
+    global batch 32, float32, the corpus trainer's optimiser: warmup, clip at
+    global norm 1, non-finite skip) on the training phase's corpus: each
+    rank's slice from ``make_refine_batch(mesh=)`` (3 render calls of
+    B = 32 / world), MD_DP_STEPS steps sharded against the same steps
+    unsharded from the same initial weights; then per-rank stage times."""
+    from foundationpose_tpu_torch.apps.train_agnostic import K_TRAIN
+    from foundationpose_tpu_torch.core import geometry as geo
+    from foundationpose_tpu_torch.models import agnostic, convert, datagen, training
+    from foundationpose_tpu_torch.models.refine_net import RefineNet
+    from foundationpose_tpu_torch.parallel.mesh import all_reduce_grads
+
+    prepped = agnostic.prepare_corpus(TRAIN_MESHES, seed=7, max_faces=2048, device="cuda")
+    p = max((q for q in prepped if q["textured"]), key=lambda q: int(q["mt"]["faces"].shape[0]))
+    K = torch.tensor(K_TRAIN, dtype=torch.float32, device="cuda")
+    diam_t = torch.tensor(p["diameter"], dtype=torch.float32, device="cuda")
+    world = mesh.size("batch")
+
+    def batch(step, dm):
+        g = torch.Generator(device="cuda").manual_seed(100 + step)  # alike on every rank
+        return datagen.make_refine_batch(g, p["mt"], K, p["diameter"], batch=MD_DP_BATCH,
+                                         input_size=S, augment=True, mesh=dm)
+
+    def run(dm):
+        net = convert.flax_init(RefineNet(c_in=6), 0).cuda()
+        opt = agnostic.corpus_optimizer(net, 2e-4, TRAIN_STEPS)
+        losses, grads = [], []
+        for step in range(MD_DP_STEPS):
+            losses.append(training.refiner_train_step_multimesh(net, opt, batch(step, dm), diam_t,
+                                                                mesh=dm))
+            grads.append(torch.cat([q.grad.reshape(-1) for q in net.parameters()]))
+        return torch.stack(losses).tolist(), grads, net, opt
+
+    reset_launches(raster_cuda)
+    l1, g1, _, _ = run(None)
+    out["dp_one_launches"] = dict(raster_cuda.LAUNCHES)
+    reset_launches(raster_cuda)
+    l2, g2, net, opt = run(mesh)
+    out["dp_sharded_launches"] = dict(raster_cuda.LAUNCHES)
+    # step 1's gradient once more in this process alone at the sharded batch
+    # size: the sum over the world's slices of the unsharded batch of each
+    # slice's gradient. The sharded gradient differs from it only by the
+    # all-reduce's order of summation; from the unsharded one also by the
+    # nets' kernels at another batch size
+    ref = convert.flax_init(RefineNet(c_in=6), 0).cuda()
+    full, per = batch(0, None), MD_DP_BATCH // world
+    for k in range(world):
+        part = {key: v[k * per:(k + 1) * per] for key, v in full.items()}
+        (training.refiner_loss(ref, part, diam_t) / world).backward()
+    g_same = torch.cat([q.grad.reshape(-1) for q in ref.parameters()])
+    res["dp_losses"] = np.array(l2)
+    out["dp"] = {"losses_unsharded": l1, "losses_sharded": l2,
+                 "loss_rel_diff": [abs(a - b) / abs(a) for a, b in zip(l1, l2)],
+                 "grad_max_abs_diff_of_norm": [((a - b).abs().max() / a.norm()).item()
+                                               for a, b in zip(g1, g2)],
+                 "grad_vs_same_batch_max_abs_diff_of_norm":
+                     ((g2[0] - g_same).abs().max() / g_same.norm()).item(),
+                 "grad_norm": [a.norm().item() for a in g1],
+                 "batch_per_rank": per, "mesh_faces": int(p["mt"]["faces"].shape[0])}
+
+    # ---- K1 at this rank's slice: hypotheses and ground truth rendered into
+    # the hypotheses' windows, lit, unculled, no normals
+    data = batch(0, mesh)
+    tfs = geo.compute_crop_window_tf_batch(data["poseA"], K, 1.2, p["diameter"], (S, S))
+    r = mesh.index("batch")
+    out["dp_kernels"] = [md_kernels(torch, raster, raster_cuda, p["mt"], data[k], K, tfs, False,
+                                    False, f"multi_device rank {r}: DP refiner slice, {k}")
+                         for k in ("poseA", "poseB")]
+
+    # ---- per-rank stage times of the sharded step
+    st = Stages(torch)
+    for i in range(MD_TIMED):
+        st.start()
+        data = batch(MD_DP_STEPS + i, mesh)
+        st.mark("data (3 render calls + augmentation)")
+        for q in opt.params:
+            q.grad = None
+        loss = training.refiner_loss(net, data, diam_t) / world
+        st.mark("forward")
+        loss.backward()
+        st.mark("backward")
+        nbytes = all_reduce_grads(mesh, opt.params)
+        st.mark("all_reduce")
+        opt.step()
+        st.mark("optimizer")
+    out["dp"].update(stage_ms=st.mean(MD_TIMED), all_reduce_bytes=nbytes)
+
+
+def md_field(torch, mesh, args, out, res):
+    """The field step at ``FieldConfig()`` widths on the field phase's frames,
+    sharded over the rays (2048 / world per rank): MD_FIELD_STEPS triplane
+    steps and one hash step at the field phase's hash widths, each held
+    against the unsharded step from the same state on the same draws (loss
+    and gradients); the all-reduce's size and time, and rays/s per rank."""
+    from foundationpose_tpu_torch.field.runner import FieldConfig, NeRFRunner
+    from foundationpose_tpu_torch.parallel.mesh import all_reduce_grads
+
+    def grads(r):
+        return torch.cat([q.grad.reshape(-1) for q in r.field.parameters()])
+
+    def copy_state(src, dst):
+        dst.field.load_state_dict(src.field.state_dict())
+        for a, b in ((src.opt, dst.opt), (src.opt_pose, dst.opt_pose)):
+            if a is not None:
+                b.load_state_dict({k: [t.clone() for t in v] if isinstance(v, list) else v.clone()
+                                   for k, v in a.state_dict().items()})
+
+    world = mesh.size("batch")
+    out["field"] = {}
+    for enc, steps in (("triplane", MD_FIELD_STEPS), ("hash", 1)):
+        cfg = FieldConfig(encoder=enc)
+        one = NeRFRunner(cfg, *args, device="cuda")
+        sh = NeRFRunner(cfg, *args, device="cuda", device_mesh=mesh)
+        rows = []
+        for _ in range(steps):
+            copy_state(sh, one)
+            d = one.draw()
+            l1, _ = one.train_step(d)
+            g1 = grads(one)
+            l2, _ = sh.train_step(d)
+            g2 = grads(sh)
+            rows.append({"loss_unsharded": float(l1), "loss_sharded": float(l2),
+                         "loss_rel_diff": abs(float(l1) - float(l2)) / abs(float(l1)),
+                         "grad_max_abs_diff_of_norm": ((g1 - g2).abs().max() / g1.norm()).item()})
+        nbytes = all_reduce_grads(mesh, sh.field.parameters())
+        n_ar = MD_TIMED if enc == "triplane" else 2
+        row = {"steps": rows, "rays_per_rank": cfg.n_rand // world, "all_reduce_bytes": nbytes,
+               "all_reduce_ms": mean_ms(torch, lambda: all_reduce_grads(
+                   mesh, sh.field.parameters()), n_ar)}
+        res[f"field_{enc}_losses"] = np.array([r_["loss_sharded"] for r_ in rows])
+        if enc == "triplane":
+            step_ms = mean_ms(torch, sh.train_step, MD_TIMED)
+            row.update(step_ms=step_ms, rays_per_s_per_rank=cfg.n_rand / world / (step_ms / 1e3))
+        out["field"][enc] = row
+        del one, sh
+        torch.cuda.empty_cache()
+
+
+def md_multi(torch, demo, raster, raster_cuda, mesh, scene, out, res):
+    """The multi-object phase's 4 objects and step (2 refine iterations) with
+    a float32 copy of the shipped RefineNet, unsharded and with the objects
+    split over the ranks; K1 at each of this rank's objects' shape."""
+    from foundationpose_tpu_torch.core import geometry as geo
+    from foundationpose_tpu_torch.engine.multi import MultiObjectTracker
+    from foundationpose_tpu_torch.engine.refiner import PoseRefiner
+    from foundationpose_tpu_torch.models.agnostic import load_agnostic
+
+    meshes, names, _, rgbs, depths, Ks, start = multi_inputs(demo, raster, scene)
+    refiner, _, _ = load_agnostic(demo.default_weights_dir(), device="cuda")
+    r32 = PoseRefiner(dataclasses.replace(refiner.cfg, dtype="float32"), device="cuda")
+    r32.net.load_state_dict(refiner.net.state_dict())
+    for kind, dm in (("one", None), ("sharded", mesh)):
+        tracker = MultiObjectTracker(meshes, refiner=r32, device="cuda", device_mesh=dm)
+        tracker.set_poses(start)
+        tracker.track(rgbs, depths, Ks, iteration=2)  # warm
+        tracker.set_poses(start)
+        reset_launches(raster_cuda)
+        poses, ms = timed(torch, lambda: tracker.track(rgbs, depths, Ks, iteration=2))
+        out[f"multi_{kind}_launches"] = dict(raster_cuda.LAUNCHES)
+        out[f"multi_{kind}_ms"] = ms
+        res[f"multi_{kind}_poses"] = poses
+    mine = tracker.mine
+    part = MultiObjectTracker(meshes[mine], refiner=r32, device="cuda")
+    part.set_poses(start[mine])
+    out["multi_own_objects_poses"] = part.track(rgbs[mine], depths[mine], Ks[mine],
+                                                iteration=2).tolist()
+    cfg, r = r32.cfg, mesh.index("batch")
+    out["multi_objects"] = [names[o] for o in range(mine.start, mine.stop)]
+    out["multi_slice"] = [mine.start, mine.stop]
+    rows = []
+    for o, mt in zip(range(tracker.mine.start, tracker.mine.stop), tracker.mesh_tensors):
+        pose = torch.tensor(start[o:o + 1], dtype=torch.float32, device="cuda")
+        pose = pose @ torch.tensor(tracker._center_tf(o, +1.0), dtype=torch.float32,
+                                   device="cuda")
+        K = torch.tensor(Ks[o], dtype=torch.float32, device="cuda")
+        tfs = geo.compute_crop_window_tf_batch(pose, K, cfg.crop_ratio,
+                                               float(tracker.diameters[o]), (S, S))
+        rows.append(md_kernels(torch, raster, raster_cuda, mt, pose, K, tfs, cfg.backface_cull,
+                               False, f"multi_device rank {r}: multi-object {names[o]}"))
+    out["multi_kernels"] = rows
+
+
+def md_scaling(torch, demo, multihost, mesh, scene, field_args, out):
+    """The counterpart of the JAX dry run's scaling table
+    (``__graft_entry__.py:204-271``): register hyp/s (fixed work, 252
+    hypotheses, the shipped bf16 nets) and field rays/s (2048 rays per rank,
+    ``FieldConfig()``) at world 1 — rank 0 alone, the others waiting — and
+    at world = every rank, each rank timing itself."""
+    from foundationpose_tpu_torch.field.runner import FieldConfig, NeRFRunner
+
+    args = (scene["K"], scene["rgb"], scene["depth"], scene["mask"])
+    world = mesh.size("batch")
+
+    def register_rate(dm):
+        est = demo.build_estimator(scene["mesh"], device="cuda", device_mesh=dm)
+        est.register(*args)
+        if dm is not None:
+            multihost.sync_hosts()
+        ms = mean_ms(torch, lambda: est.register(*args), 3)
+        return {"ms": ms, "hyp_per_s": len(est.rot_grid) / (ms / 1e3)}
+
+    def field_rate(dm, n_rand):
+        runner = NeRFRunner(FieldConfig(n_rand=n_rand), *field_args, device="cuda",
+                            device_mesh=dm)
+        runner.train_step()
+        if dm is not None:
+            multihost.sync_hosts()
+        ms = mean_ms(torch, runner.train_step, MD_TIMED)
+        return {"n_rand": n_rand, "step_ms": ms, "rays_per_s": n_rand / (ms / 1e3)}
+
+    table = {}
+    if mesh.index("batch") == 0:
+        table["1"] = {"register": register_rate(None)}
+        if field_args is not None:
+            table["1"]["field"] = field_rate(None, FieldConfig().n_rand)
+    multihost.sync_hosts()
+    table[str(world)] = {"register": register_rate(mesh)}
+    if field_args is not None:
+        table[str(world)]["field"] = field_rate(mesh, FieldConfig().n_rand * world)
+    out["scaling"] = table
+
+
+def md_rank(rank, coord, tmp, backend, world=MD_WORLD):
+    """One rank of the multi_device phase (run in its own process). With
+    nccl and more ranks than cards it only tries one all_reduce (NCCL refuses
+    two ranks on one device). Otherwise it runs each sharded program of the
+    port against the same program unsharded, in this process, and writes what
+    it got to ``tmp``: ``register`` (its preprocess, scorer and K1 at its shard
+    shapes), BA when ``tmp`` holds the slam phase's problem, the data-parallel
+    refiner step, the field step when ``tmp`` holds the field phase's frames,
+    the multi-object step, and the scaling table."""
+    import torch
+
+    from foundationpose_tpu_torch.apps import demo_synthetic as demo
+    from foundationpose_tpu_torch.ops import raster, raster_cuda
+    from foundationpose_tpu_torch.parallel import multihost
+
+    multihost.initialize(coord, num_processes=world, process_id=rank, device="cuda",
+                         backend=backend)
+    if backend == "nccl" and world > torch.cuda.device_count():
+        x = torch.ones(4, device="cuda")
+        torch.distributed.all_reduce(x)
+        torch.cuda.synchronize()
+        print(f"RANK{rank}_NCCL_ALL_REDUCE {x.tolist()}", flush=True)
+        return
+    mesh = multihost.make_global_mesh(("batch",))
+    out = {"rank": rank, "device": str(multihost.local_device()),
+           "backend": torch.distributed.get_backend(),
+           "world": multihost.process_count(), "card": torch.cuda.get_device_name()}
+    res = {}
+    t0 = time.perf_counter()
+
+    def done(part):
+        out.setdefault("part_s", {})[part] = time.perf_counter() - t0
+        print(f"RANK{rank} {part} done at {out['part_s'][part]:.1f} s", flush=True)
+
+    scene = demo.make_scene((480, 640), device="cuda")
+    md_register(torch, demo, raster, raster_cuda, multihost, mesh, scene, out, res)
+    done("register")
+    if os.path.exists(os.path.join(tmp, "ba.npz")):
+        md_ba(torch, mesh, tmp, out, res)
+        done("bundle_adjust")
+    md_dp_refiner(torch, raster, raster_cuda, mesh, out, res)
+    done("dp_refiner")
+    field_args = None
+    if os.path.exists(os.path.join(tmp, "field.npz")):
+        f = np.load(os.path.join(tmp, "field.npz"))
+        field_args = field_runner_inputs(f["images"], f["depth_mm"], f["masks"],
+                                         f["ob_in_cams"], f["K"])
+        done("field inputs")
+        md_field(torch, mesh, field_args, out, res)
+        done("field")
+    md_multi(torch, demo, raster, raster_cuda, mesh, scene, out, res)
+    done("multi_object")
+    md_scaling(torch, demo, multihost, mesh, scene, field_args, out)
+    done("scaling")
     multihost.sync_hosts()
     np.savez(os.path.join(tmp, f"rank{rank}.npz"), **res)
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -2386,10 +2798,10 @@ def float32_nets(refiner, scorer):
     return r32, HybridScorer(s32, geo_config=scorer.geo_cfg, weight=scorer.weight)
 
 
-def launch_ranks(tmp, backend):
-    """Start MD_WORLD processes of ``md_rank`` on the card; wait at most
-    MD_TIMEOUT s, then stop every one still running. Returns [(returncode or
-    None when stopped, output tail)]."""
+def launch_ranks(tmp, backend, world=MD_WORLD):
+    """Start ``world`` processes of ``md_rank``; wait at most MD_TIMEOUT s,
+    then stop every one still running. Returns [(returncode or None when
+    stopped, output tail)]."""
     import socket
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2397,9 +2809,9 @@ def launch_ranks(tmp, backend):
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     procs = []
-    for r in range(MD_WORLD):
+    for r in range(world):
         code = (f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
-                f"chip_smoke.md_rank({r}, 'localhost:{port}', {tmp!r}, {backend!r})")
+                f"chip_smoke.md_rank({r}, 'localhost:{port}', {tmp!r}, {backend!r}, {world})")
         procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=here,
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     deadline = time.perf_counter() + MD_TIMEOUT
@@ -2432,36 +2844,102 @@ def ranked_diff(a_scores, a_poses, b_scores, b_poses, tol):
     return float(np.abs(a_scores - b_scores).max()), worst, moved
 
 
-def run_multi_device(torch, raster_cuda, ba_problem, smi):
-    """Two ranks on the one card over gloo (``multihost.initialize(...,
-    backend="gloo")``): in each, the learned-hybrid ``register`` (252
-    hypotheses, 160 px) unsharded and with ``device_mesh`` (each rank refines
-    its half of the 256 through K1; every rank scores all), with the shipped
-    bf16 nets and with float32 copies, and ``bundle_adjust`` on the slam
-    phase's keyframe problem unsharded and with the landmarks split. Sharded
-    equals unsharded with float32 nets (ranked list and scores at
-    MD_REGISTER_TOL), as earlier phases hold paths with float32 nets; BA poses
-    at MD_BA_TOL; both ranks return the same. Then
+def md_gates(i, x, world, backend):
+    """The failed gates of one rank's results (``i``: its JSON, ``x``: its
+    arrays), as strings."""
+    bad = []
+    for dtype in ("float32", "bfloat16"):
+        if not np.isfinite(x[f"sharded_{dtype}_scores"]).all():
+            bad.append(f"register {dtype}: non-finite scores")
+        if set(i[f"sharded_{dtype}_launches"].values()) != {11}:
+            bad.append(f"register {dtype}: {i[f'sharded_{dtype}_launches']} launches, not 11")
+    ds, dp, _ = ranked_diff(x["sharded_float32_scores"], x["sharded_float32_poses"],
+                            x["one_float32_scores"], x["one_float32_poses"], MD_REGISTER_TOL)
+    dpose = float(np.abs(x["sharded_float32_pose"] - x["one_float32_pose"]).max())
+    if max(ds, dp, dpose) > MD_REGISTER_TOL:
+        bad.append(f"register float32: ranked list {ds}, {dp}, pose {dpose}")
+    if not (len(x["sharded_float32_scores"]) == i["n_grid"] == 252 and i["padded_to"] == 256):
+        bad.append(f"register: {i['n_grid']} hypotheses padded to {i['padded_to']}")
+    if not i["preprocess"]["bit_equal"]:
+        bad.append("the row-sharded preprocess differs from the unsharded one")
+    if i["scorer"]["float32"]["max_abs_diff"] > MD_SCORE_TOL:
+        bad.append(f"sharded scorer (float32): {i['scorer']['float32']['max_abs_diff']}")
+    if "ba_sharded_poses" in x and float(
+            np.abs(x["ba_sharded_poses"] - x["ba_one_poses"]).max()) > MD_BA_TOL:
+        bad.append("BA: sharded poses differ")
+    dp_ = i["dp"]
+    if (max(dp_["loss_rel_diff"]) > MD_LOSS_RTOL
+            or dp_["grad_max_abs_diff_of_norm"][0] > MD_GRAD_TOL
+            or dp_["grad_vs_same_batch_max_abs_diff_of_norm"] > MD_GRAD_TOL
+            or not np.isfinite(dp_["losses_sharded"]).all()):
+        bad.append(f"DP refiner step: {dp_}")
+    n_dp = 3 * MD_DP_STEPS
+    if set(i["dp_one_launches"].values()) != {n_dp} or set(
+            i["dp_sharded_launches"].values()) != {n_dp}:
+        bad.append(f"DP refiner step launches {i['dp_one_launches']} / "
+                   f"{i['dp_sharded_launches']}, not {n_dp}")
+    for enc, row in i.get("field", {}).items():
+        for st in row["steps"]:
+            if (st["loss_rel_diff"] > MD_LOSS_RTOL or not np.isfinite(st["loss_sharded"])
+                    or st["grad_max_abs_diff_of_norm"] > MD_GRAD_TOL):
+                bad.append(f"field step ({enc}): {st}")
+    mine = x["multi_sharded_poses"][i["multi_slice"][0]:i["multi_slice"][1]]
+    if (float(np.abs(mine - np.array(i["multi_own_objects_poses"])).max()) > MD_MULTI_TOL
+            or float(np.abs(x["multi_sharded_poses"] - x["multi_one_poses"]).max())
+            > MD_MULTI_BATCH_TOL):
+        bad.append("multi-object: sharded poses differ")
+    if set(i["multi_one_launches"].values()) != {8} or set(
+            i["multi_sharded_launches"].values()) != {8 // world}:
+        bad.append(f"multi-object launches {i['multi_one_launches']} / "
+                   f"{i['multi_sharded_launches']}, not 8 / {8 // world}")
+    for row in i["scaling"].values():
+        for v in row.values():
+            if not (np.isfinite(list(v.values())).all() and min(v.values()) > 0):
+                bad.append(f"scaling table: {v}")
+    if i["backend"] != backend or i["world"] != world:
+        bad.append(f"backend {i['backend']}, world {i['world']}")
+    return bad
+
+
+def run_multi_device(torch, raster_cuda, ba_problem, smi, field_in, backend="gloo",
+                     world=MD_WORLD):
+    """``world`` ranks (``multihost.initialize(..., backend=backend)``; by
+    default two ranks on the one card over gloo), each running every sharded
+    program against the same program unsharded (``md_rank``): the
+    learned-hybrid ``register`` (252 hypotheses, 160 px, bf16 and float32
+    nets; preprocess row-sharded, scorer sharded, K1 at the rank's shard
+    shapes), ``bundle_adjust`` on the slam phase's keyframes (``ba_problem``,
+    when given), the data-parallel refiner step, the field step on the field
+    phase's frames (``field_in``), the 4-object tracker step split 2 + 2, and
+    the scaling table. Gates (``md_gates``): float32 runs equal to the
+    unsharded ones within the MD_* tolerances, the preprocess bit for bit,
+    every rank's launch counts, the ranks' results equal. Then, over gloo,
     the same two ranks over nccl, expected to be refused (two ranks on one
-    device). Checks the collectives' code path on one card, not NCCL and not
-    more than one card."""
+    device). Over gloo on one card it checks the code path, not NCCL and not
+    scaling. Returns the launch counts by path, summed over the ranks."""
     import tempfile
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        np.savez(os.path.join(tmp, "ba.npz"), poses=ba_problem["poses_ob_in_cam"],
-                 X=ba_problem["landmarks"], kf=ba_problem["obs_kf"], pt=ba_problem["obs_pt"],
-                 w=ba_problem["obs_w"], n=ba_problem["obs_n"])
-        gloo = launch_ranks(tmp, "gloo")
-        for r, (rc, out) in enumerate(gloo):
+        if ba_problem is not None:
+            np.savez(os.path.join(tmp, "ba.npz"), poses=ba_problem["poses_ob_in_cam"],
+                     X=ba_problem["landmarks"], kf=ba_problem["obs_kf"], pt=ba_problem["obs_pt"],
+                     w=ba_problem["obs_w"], n=ba_problem["obs_n"])
+        if field_in is not None:
+            np.savez(os.path.join(tmp, "field.npz"), **{k: field_in[k] for k in (
+                "images", "depth_mm", "masks", "ob_in_cams", "K")})
+        ranks = launch_ranks(tmp, backend, world)
+        for r, (rc, out) in enumerate(ranks):
             if rc != 0 or f"RANK{r}_OK" not in out:
-                fail(f"multi_device: gloo rank {r} exited {rc}:\n{out}")
-        info = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(MD_WORLD)]
-        res = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(MD_WORLD)]
-        nccl = launch_ranks(tmp, "nccl")
-    rows = []
+                fail(f"multi_device: {backend} rank {r} exited {rc}:\n{out}")
+        info = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(world)]
+        res = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(world)]
+        probe = launch_ranks(tmp, "nccl") if backend == "gloo" else None
+    rows, failed = [], []
     for r, (i, x) in enumerate(zip(info, res)):
-        row = {"rank": r, **i}
+        row = {**{k: v for k, v in i.items()
+                  if not k.endswith("_launches") and k != "multi_own_objects_poses"},
+               "launches": {k: v for k, v in i.items() if k.endswith("_launches")}}
         for dtype in ("float32", "bfloat16"):
             ds, dp, swapped = ranked_diff(x[f"sharded_{dtype}_scores"], x[f"sharded_{dtype}_poses"],
                                           x[f"one_{dtype}_scores"], x[f"one_{dtype}_poses"],
@@ -2470,44 +2948,95 @@ def run_multi_device(torch, raster_cuda, ba_problem, smi):
                           "reordered_ties": swapped,
                           "pose_max_abs_diff": float(np.abs(x[f"sharded_{dtype}_pose"]
                                                             - x[f"one_{dtype}_pose"]).max())}
-        row.update({
-            "ba_poses_max_abs_diff": float(np.abs(x["ba_sharded_poses"] - x["ba_one_poses"]).max()),
-            "ba_X_max_abs_diff": float(np.abs(x["ba_sharded_X"] - x["ba_one_X"]).max()),
-            "ba_costs": [x["ba_one_costs"].tolist(), x["ba_sharded_costs"].tolist()]})
+        if "ba_one_poses" in x:
+            row.update({
+                "ba_poses_max_abs_diff": float(np.abs(x["ba_sharded_poses"]
+                                                      - x["ba_one_poses"]).max()),
+                "ba_X_max_abs_diff": float(np.abs(x["ba_sharded_X"] - x["ba_one_X"]).max()),
+                "ba_costs": [x["ba_one_costs"].tolist(), x["ba_sharded_costs"].tolist()]})
+        row["multi_poses_max_abs_diff"] = float(np.abs(x["multi_sharded_poses"]
+                                                       - x["multi_one_poses"]).max())
+        row["multi_own_objects_max_abs_diff"] = float(np.abs(
+            x["multi_sharded_poses"][slice(*i["multi_slice"])]
+            - np.array(i["multi_own_objects_poses"])).max())
         rows.append(row)
-        f32 = row["float32"]
-        ok = (f32["scores_max_abs_diff"] <= MD_REGISTER_TOL
-              and f32["poses_max_abs_diff"] <= MD_REGISTER_TOL
-              and f32["pose_max_abs_diff"] <= MD_REGISTER_TOL
-              and all(np.isfinite(x[f"sharded_{d}_scores"]).all() for d in ("float32", "bfloat16"))
-              and len(x["sharded_float32_scores"]) == i["n_grid"] == 252 and i["padded_to"] == 256
-              and row["ba_poses_max_abs_diff"] <= MD_BA_TOL
-              and i["backend"] == "gloo" and i["world"] == MD_WORLD
-              and all(set(i[f"sharded_{d}_launches"].values()) == {11}
-                      for d in ("float32", "bfloat16")))
-        if not ok:
-            say("multi_device", failed=row)
-            fail(f"multi_device: rank {r}: the sharded runs differ from the unsharded ones: {row}")
-    across = max(float(np.abs(res[0][k] - res[1][k]).max()) for k in res[0])
+        failed += [f"rank {r}: {b}" for b in md_gates(i, x, world, backend)]
+    across = max(float(np.abs(res[0][k] - x[k]).max()) for x in res[1:] for k in res[0])
     if across > 1e-5:
-        fail(f"multi_device: the two ranks' results differ by {across}")
-    nccl_refused = all(rc != 0 for rc, _ in nccl)
-    say("multi_device", backend="gloo", world=MD_WORLD, device=info[0]["device"], ranks=rows,
-        ranks_max_abs_diff=across,
-        nccl={"refused": nccl_refused, "exit_codes": [rc for rc, _ in nccl],
-              "errors": [[ln for ln in o.splitlines() if "rror" in ln][-2:] for _, o in nccl]},
+        failed.append(f"the ranks' results differ by {across}")
+    # the scaling table: world 1 from rank 0 alone; at full world, the slowest rank
+    scaling = {"1": info[0]["scaling"]["1"], str(world): {}}
+    for prog, rate in (("register", "hyp_per_s"), ("field", "rays_per_s")):
+        if prog in info[0]["scaling"][str(world)]:
+            scaling[str(world)][prog] = min((i["scaling"][str(world)][prog] for i in info),
+                                            key=lambda v: v[rate])
+    extra = {}
+    if probe is not None:
+        extra["nccl"] = {"refused": all(rc != 0 for rc, _ in probe),
+                         "exit_codes": [rc for rc, _ in probe],
+                         "errors": [[ln for ln in o.splitlines() if "rror" in ln][-2:]
+                                    for _, o in probe]}
+    say("multi_device", backend=backend, world=world, device=info[0]["device"], ranks=rows,
+        ranks_max_abs_diff=across, scaling=scaling, **extra, failed_gates=failed,
+        reduced=[f"DP refiner: {MD_DP_STEPS} steps (train_agnostic's default 20000)",
+                 f"field: {MD_FIELD_STEPS} triplane steps and 1 hash step (FieldConfig().n_step "
+                 "1000)", "multi-object: one step of 2 iterations"],
         phase_s=time.perf_counter() - t_phase,
-        checks="torch.distributed collectives (all_reduce SUM of partial sums, row gathers) "
-               "between two processes on ONE card over gloo; not NCCL, not two cards",
+        checks=(f"torch.distributed collectives between {world} processes over {backend}"
+                + (" on ONE card: the code path, not NCCL, not scaling" if backend == "gloo"
+                   and torch.cuda.device_count() == 1 else "")),
         gate=f"register with float32 nets: ranked list and scores within {MD_REGISTER_TOL} of the "
              f"unsharded run (neighbours within {MD_REGISTER_TOL} may trade places), 252 "
-             "hypotheses padded to 256; 11 + 11 launches per rank with either net precision; "
-             f"BA poses within {MD_BA_TOL}; ranks equal. The bf16 nets' difference is printed: "
-             "their kernels round differently at a refine batch of 128 and of 256, and five "
-             "refine iterations amplify it",
+             "hypotheses padded to 256, 11 + 11 launches per rank with either net precision; "
+             "the row-sharded preprocess bit for bit; the sharded scorer on the same poses "
+             f"within {MD_SCORE_TOL} (float32 nets); BA poses within {MD_BA_TOL}; DP refiner "
+             f"and field steps: losses at rtol {MD_LOSS_RTOL}, all-reduced gradients within "
+             f"{MD_GRAD_TOL} x the norm of the unsharded ones (DP: also of the same step at the "
+             "sharded batch size in one process); multi-object poses within "
+             f"{MD_MULTI_TOL} of an unsharded tracker over the rank's own objects and within "
+             f"{MD_MULTI_BATCH_TOL} of one over all four (RefineNet's batch rounds otherwise), "
+             "8 / world launches per rank; K1s + K1r at every shard "
+             "shape at the kernel gates; ranks equal. The bf16 nets' differences are printed",
         card=smi)
-    return add_counts(add_counts({}, info[0]["sharded_bfloat16_launches"]),
-                      info[1]["sharded_bfloat16_launches"]), rows
+    if failed:
+        fail("multi_device: " + "; ".join(failed))
+
+    def summed(key):
+        total = {}
+        for i in info:
+            add_counts(total, i[key])
+        return total
+
+    return {f"multi_device: sharded register on {world} ranks ({backend})":
+            summed("sharded_bfloat16_launches"),
+            f"multi_device: data-parallel refiner steps on {world} ranks ({backend})":
+            summed("dp_sharded_launches"),
+            f"multi_device: sharded multi-object step on {world} ranks ({backend})":
+            summed("multi_sharded_launches")}
+
+
+def md_cards(world=4):
+    """The multi_device phase alone over nccl, one rank per card, on a
+    machine with ``world`` cards (not run by ``main``, which needs one card):
+
+        python -c "import chip_smoke; chip_smoke.md_cards(4)"
+
+    Builds the kernels, renders the field phase's frames and runs every
+    sharded program of the phase (BA, which needs the slam phase, is left
+    out) with its gates; prints the phase's line."""
+    import torch
+
+    from foundationpose_tpu_torch import native
+    from foundationpose_tpu_torch.apps import demo_synthetic as demo
+    from foundationpose_tpu_torch.ops import raster, raster_cuda
+
+    if torch.cuda.device_count() < world:
+        fail(f"md_cards({world}) needs {world} cards, found {torch.cuda.device_count()}")
+    smi = nvidia_smi_line()
+    raster_cuda.build()
+    native.build()
+    views = field_views(demo, raster, raster_cuda)
+    run_multi_device(torch, raster_cuda, None, smi, views, backend="nccl", world=world)
 
 
 def main():
@@ -2646,12 +3175,11 @@ def main():
     by_path.update(io_paths)
     by_path["training stack (corpus trainers, resume, serve, harness fallback)"], train_k = \
         run_train(torch, raster, raster_cuda, scene, smi)
-    by_path["run_field + true-mesh texture bake"], field_k = run_field_phase(
+    by_path["run_field + true-mesh texture bake"], field_k, field_in = run_field_phase(
         torch, demo, raster, raster_cuda, smi)
     by_path["ModelFreeTracker: init, steps, retrains, pose-graph BA, finalize + bake"], slam_k, \
         ba_problem = run_slam_phase(torch, demo, raster, raster_cuda, smi)
-    by_path["multi_device: sharded register on 2 ranks (gloo)"], _ = run_multi_device(
-        torch, raster_cuda, ba_problem, smi)
+    by_path.update(run_multi_device(torch, raster_cuda, ba_problem, smi, field_in))
     all_launches = {}
     for counts in by_path.values():
         add_counts(all_launches, counts)

@@ -21,17 +21,27 @@ geometric score's normals, so scores depend on them. Pads are masked to
 ``-inf`` after every score and dropped before the result.
 
 With a ``device_mesh`` (``parallel.mesh.Mesh``, first axis) ``register`` runs
-on every process of the mesh: the grid is padded to a multiple of
-``lcm(32, axis size)``, each process refines its slice of the hypotheses
-(K1 renders included) and the refined poses are gathered back in order; every
-process then scores the whole set — ScoreNet's attention runs across all
-hypotheses — and returns the same ranked list as an unsharded run, up to
-the rounding of the nets' kernels at another batch size: with bf16 nets on
-an H100, a refine batch of 128 rounds otherwise than one of 256 and five
-refine iterations amplify it (scores up to 0.028 apart), while float32 nets
-agree within 1.2e-7. Each
-process preprocesses the whole frame (the JAX package row-shards it, an XLA
-layout that leaves the result unchanged).
+on every process of the mesh and splits its work as the JAX package's
+sharded program does:
+
+- the full-frame preprocess is row-sharded: each process erodes and filters
+  its rows with a 4-row halo (two radius-2 stencils) and the rows are
+  gathered, bit for bit the unsharded result;
+- the grid is padded to a multiple of ``lcm(32, axis size)`` and each
+  process refines its slice of the hypotheses (K1 renders included); the
+  refined poses are gathered back in order;
+- each process renders and encodes its slice for the scorer: ScoreNet's
+  per-pair features are gathered before its attention across all hypotheses,
+  and the geometric score takes a one-hypothesis halo on each side of its
+  slice (its normals' validity rolls along the hypothesis axis, wrapping at
+  the ends of the padded set);
+
+and returns the same ranked list as an unsharded run, up to the rounding of
+the nets' kernels at another batch size: with bf16 nets on an H100, a refine
+batch of 128 rounds otherwise than one of 256 and five refine iterations
+amplify it (scores up to 0.028 apart), while float32 nets agree within
+1.2e-7. A batch or frame that does not split evenly over the processes is
+processed whole on every one.
 
 Host <-> device traffic goes through two helpers, ``_upload`` (pinned memory,
 asynchronous copy) and ``_PoseDownload`` (pinned buffer + an event recorded
@@ -102,10 +112,23 @@ class _PoseDownload:
         return self._host.numpy().astype(np.float64)
 
 
-def preprocess_depth(depth, K):
-    """erode + bilateral + xyz map (the per-frame depth preprocessing)."""
-    d = imops.erode_depth(depth, radius=2)
-    d = imops.bilateral_filter_depth(d, radius=2)
+PREPROCESS_HALO = 4  # rows: erode (radius 2), then bilateral (radius 2)
+
+
+def preprocess_depth(depth, K, mesh=None):
+    """erode + bilateral + xyz map (the per-frame depth preprocessing). With
+    a device ``mesh`` whose first axis divides the rows, each process filters
+    its rows with a ``PREPROCESS_HALO`` halo and the rows are gathered: the
+    stencils are local, so the result is the unsharded one bit for bit."""
+    axis = mesh.axis_names[0] if mesh is not None else None
+    if mesh is None or mesh.size(axis) == 1 or depth.shape[0] % mesh.size(axis):
+        d = imops.bilateral_filter_depth(imops.erode_depth(depth, radius=2), radius=2)
+        return d, geo.depth2xyzmap(d, K)
+    from foundationpose_tpu_torch.parallel.mesh import all_gather_rows, shard_rows
+
+    rows, (lo, hi) = shard_rows(mesh, depth, PREPROCESS_HALO, axis)
+    d = imops.bilateral_filter_depth(imops.erode_depth(rows, radius=2), radius=2)
+    d = all_gather_rows(mesh, d[lo:d.shape[0] - hi], axis)
     return d, geo.depth2xyzmap(d, K)
 
 
@@ -188,8 +211,8 @@ class FoundationPoseTorch:
 
     ``device=None`` means cuda (raises without one); ``device="cpu"`` runs
     the plain rasterizer and float32 nets on the CPU. ``device_mesh``: a
-    ``parallel.mesh.Mesh`` whose first axis shards ``register``'s hypotheses
-    (every process of it calls ``register``).
+    ``parallel.mesh.Mesh`` whose first axis shards ``register``'s work
+    (every process of it calls ``register``; see the module docstring).
     """
 
     def __init__(self, mesh: meshio.Mesh, symmetry_tfs=None,
@@ -324,19 +347,36 @@ class FoundationPoseTorch:
             return HYP_BUCKET
         return math.lcm(HYP_BUCKET, self.device_mesh.size(self.device_mesh.axis_names[0]))
 
+    def _split_mesh(self, n):
+        """The device mesh when a batch of ``n`` splits evenly over its first
+        axis (of more than one process), else None: such a batch is processed
+        whole on every process."""
+        mesh = self.device_mesh
+        if mesh is None:
+            return None
+        size = mesh.size(mesh.axis_names[0])
+        return mesh if size > 1 and n % size == 0 else None
+
     def _refine(self, mt, obs, poses, diam, iterations, **kw):
         """``refiner.refine`` over a hypothesis batch. With a device mesh each
-        process refines its slice and the slices are gathered back in order;
-        a batch that does not split evenly is refined whole on every process."""
-        mesh = self.device_mesh
-        axis = mesh.axis_names[0] if mesh is not None else None
-        if mesh is None or mesh.size(axis) == 1 or poses.shape[0] % mesh.size(axis):
+        process refines its slice and the slices are gathered back in order."""
+        mesh = self._split_mesh(poses.shape[0])
+        if mesh is None:
             return self.refiner.refine(mt, *obs, poses, diam, iterations, **kw)
         from foundationpose_tpu_torch.parallel.mesh import all_gather_rows, shard_batch
 
+        axis = mesh.axis_names[0]
         mine = self.refiner.refine(mt, *obs, shard_batch(mesh, poses, axis), diam, iterations,
                                    **kw)
         return all_gather_rows(mesh, mine, axis)
+
+    def _score(self, mt, obs, poses, diam, **kw):
+        """``scorer.score`` over a hypothesis batch; with a device mesh each
+        process scores its slice (``device_mesh=`` of the scorers)."""
+        mesh = self._split_mesh(poses.shape[0])
+        if mesh is None:
+            return self.scorer.score(mt, *obs, poses, diam, **kw)
+        return self.scorer.score(mt, *obs, poses, diam, device_mesh=mesh, **kw)
 
     def _top_k(self, scores, k):
         # stable descending order: ties go to the lower index
@@ -363,7 +403,7 @@ class FoundationPoseTorch:
             gate = imops.dilate_mask(mask_t, radius=int(cfg.register_mask_dilation))
             depth_t = torch.where(gate, depth_t, torch.zeros_like(depth_t))
             rgb_t = rgb_t * gate[..., None]
-        d, xyz_map = preprocess_depth(depth_t, K_t)
+        d, xyz_map = preprocess_depth(depth_t, K_t, self.device_mesh)
         center, n_valid = guess_translation(d, mask_t, K_t)
         if n_valid < 4:
             logging.info("valid pixel count < 4; returning translation-only pose")
@@ -391,7 +431,7 @@ class FoundationPoseTorch:
             a rescored entry never resurrects a pad's -inf."""
             top_i = self._top_k(scores, min(k, n_hyp))
             top = self._refine(mt, obs, refined[top_i], diam, iterations)
-            top_s = self.scorer.score(mt, *obs, top, diam)
+            top_s = self._score(mt, obs, top, diam)
             refined, scores = refined.clone(), scores.clone()
             refined[top_i] = top
             scores[top_i] = top_s + 100.0
@@ -403,13 +443,13 @@ class FoundationPoseTorch:
             # at a smaller crop size: its scores only select the top K
             mtc, size = self.mesh_tensors_coarse, cfg.funnel_coarse_size or None
             refined = self._refine(mtc, obs, hyp, diam, n_coarse, out_size=size)
-            scores = self.scorer.score(mtc, *obs, refined, diam, out_size=size)
+            scores = self._score(mtc, obs, refined, diam, out_size=size)
             scores = scores.masked_fill(is_pad, -torch.inf)
             refined, scores = rescore_top(
                 refined, scores, cfg.funnel_top_k, iteration - n_coarse)
         else:
             refined = self._refine(mt, obs, hyp, diam, iteration)
-            scores = self.scorer.score(mt, *obs, refined, diam)
+            scores = self._score(mt, obs, refined, diam)
             scores = scores.masked_fill(is_pad, -torch.inf)
         if cfg.final_refine_iterations > 0:
             refined, scores = rescore_top(

@@ -203,10 +203,31 @@ class GeometricScorer:
         self.device = resolve_device(device)
 
     def score(self, mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
-              out_size=None, gate_px=0):
-        """poses: (N,4,4) -> scores (N,) float32 tensor on the device."""
-        return _geo_score(self.cfg, mesh_tensors, poses, K, rgb, xyz_map,
-                          mesh_diameter, gate_px=gate_px)
+              out_size=None, gate_px=0, device_mesh=None):
+        """poses: (N,4,4) -> scores (N,) float32 tensor on the device
+        (``device_mesh``: see ``geo_score``)."""
+        return geo_score(self.cfg, mesh_tensors, poses, K, rgb, xyz_map,
+                         mesh_diameter, gate_px=gate_px, device_mesh=device_mesh)
+
+
+def geo_score(cfg, mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter, gate_px=0,
+              device_mesh=None):
+    """``_geo_score`` of every hypothesis. With a ``device_mesh`` (first axis;
+    N splits evenly over it) each process scores its slice and the scores are
+    gathered in order. A hypothesis's score reads its neighbours on the
+    hypothesis axis (``_normals_from_xyz`` rolls the observed validity along
+    it, wrapping round), so each slice is scored with one hypothesis of halo
+    on either side, wrapped at the ends of the whole set, and the halo's
+    scores are dropped."""
+    if device_mesh is None:
+        return _geo_score(cfg, mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
+                          gate_px=gate_px)
+    from foundationpose_tpu_torch.parallel.mesh import all_gather_rows, shard_rows
+
+    axis = device_mesh.axis_names[0]
+    mine, (lo, hi) = shard_rows(device_mesh, poses, 1, axis, wrap=True)
+    s = _geo_score(cfg, mesh_tensors, mine, K, rgb, xyz_map, mesh_diameter, gate_px=gate_px)
+    return all_gather_rows(device_mesh, s[lo:s.shape[0] - hi], axis)
 
 
 def _normals_from_xyz(xyz, valid):

@@ -22,6 +22,14 @@ tracker keeps each object's own unpadded tensors: the stacked layout would
 only make the setup kernel look at the largest object's face count for every
 object. The pad faces change no pixel (both rasterizers drop zero-area
 triangles), so the poses are those of the stacked layout.
+
+With a ``device_mesh`` (``parallel.mesh.Mesh``, first axis) the object axis
+is sharded, as the JAX package shards its stacked objects over the mesh:
+each process holds the mesh tensors of its contiguous slice of the objects
+only, uploads only its slice of the per-object frames, refines its objects
+through K1, and the poses are gathered in order, so every process holds (and
+``get_poses`` returns) all of them. The object count must split evenly over
+the axis (``ValueError`` otherwise, as ``NamedSharding`` refuses it).
 """
 
 from __future__ import annotations
@@ -56,20 +64,24 @@ def _vertex_colors_from_texture(mesh):
     return m
 
 
-def object_mesh_tensors(meshes, max_faces=4096, device=None):
+def object_mesh_tensors(meshes, max_faces=4096, device=None, keep=None):
     """Per-object mesh tensors of the tracker: each mesh centred, its texture
     baked to vertex colours, decimated to ``max_faces``, not bucketed. Returns
     (list of mesh-tensor dicts, diameters (O,) float32 array, centres (O,3)
-    array)."""
+    array). ``keep``: a slice of the objects whose tensors are built (the
+    diameters and centres are every object's); default all."""
     device = resolve_device(device)
+    keep = range(len(meshes))[keep if keep is not None else slice(None)]
     prepped, centers, diameters = [], [], []
-    for mesh in meshes:
+    for i, mesh in enumerate(meshes):
         bounds = mesh.bounds
         center = (bounds[0] + bounds[1]) / 2
         centered = _vertex_colors_from_texture(mesh.translated(-center))
         centers.append(center)
         diameters.append(meshio.compute_mesh_diameter(mesh=centered))
-        prepped.append(raster.make_mesh_tensors(centered, max_faces=max_faces, device=device))
+        if i in keep:
+            prepped.append(raster.make_mesh_tensors(centered, max_faces=max_faces,
+                                                    device=device))
     return prepped, np.asarray(diameters, np.float32), np.stack(centers)
 
 
@@ -99,18 +111,29 @@ def stack_mesh_tensors(meshes, max_faces=4096, device=None):
 class MultiObjectTracker:
     """Track N objects at once. Initialise each object's pose from a
     single-object ``FoundationPoseTorch.register`` (or provide poses), then
-    call :meth:`track` once per set of frames. ``device=None`` means cuda."""
+    call :meth:`track` once per set of frames. ``device=None`` means cuda;
+    ``device_mesh`` shards the objects (module docstring)."""
 
     def __init__(self, meshes, refiner: PoseRefiner | None = None, max_faces=4096,
-                 device=None):
+                 device=None, device_mesh=None):
         self.device = resolve_device(device)
         self.refiner = refiner or PoseRefiner(RefinerConfig(), device=self.device)
         if self.refiner.device.type != self.device.type:
             raise ValueError(f"refiner lives on {self.refiner.device}, tracker on {self.device}")
+        self.n_objects = O = len(meshes)
+        self.device_mesh = device_mesh
+        self.mine = slice(0, O)  # this process's objects
+        if device_mesh is not None:
+            if device_mesh.device.type != self.device.type:
+                raise ValueError(f"device mesh on {device_mesh.device}, tracker on {self.device}")
+            axis = device_mesh.axis_names[0]
+            n, i = device_mesh.size(axis), device_mesh.index(axis)
+            if O % n:
+                raise ValueError(f"{O} objects do not split evenly over {n} processes")
+            self.mine = slice(i * (O // n), (i + 1) * (O // n))
         self.mesh_tensors, self.diameters, self.centers = object_mesh_tensors(
-            meshes, max_faces=max_faces, device=self.device
-        )  # a list: one unpadded mesh-tensor dict per object
-        self.n_objects = len(meshes)
+            meshes, max_faces=max_faces, device=self.device, keep=self.mine
+        )  # a list: one unpadded mesh-tensor dict per object of this process
         self.poses = None  # (O,4,4) float32, centred-mesh object-in-camera
 
     def _center_tf(self, i, sign):
@@ -136,17 +159,19 @@ class MultiObjectTracker:
     def track(self, rgbs, depths, Ks, iteration=2):
         """rgbs: (O,H,W,3); depths: (O,H,W); Ks: (O,3,3) — one observation
         per object (the streams may be distinct cameras). Returns the (O,4,4)
-        poses of the original meshes."""
+        poses of the original meshes (every object's, on every process of a
+        device mesh; each uploads and refines only its own)."""
         if self.poses is None:
             raise RuntimeError("set_poses() before track()")
-        dev, O, cfg = self.device, self.n_objects, self.refiner.cfg
-        Ks = _upload(np.asarray(Ks), dev, torch.float32)
-        rgbs = _upload(np.asarray(rgbs), dev, torch.float32)
-        depths = _upload(np.asarray(depths), dev, torch.float32)
+        dev, cfg, mine = self.device, self.refiner.cfg, self.mine
+        Ks = _upload(np.asarray(Ks)[mine], dev, torch.float32)
+        rgbs = _upload(np.asarray(rgbs)[mine], dev, torch.float32)
+        depths = _upload(np.asarray(depths)[mine], dev, torch.float32)
+        O = len(self.mesh_tensors)
         xyz_maps = [preprocess_depth(depths[o], Ks[o])[1] for o in range(O)]
         meshes = self.mesh_tensors
-        diameters = [float(d) for d in self.diameters]
-        poses = _upload(self.poses, dev)
+        diameters = [float(d) for d in self.diameters[mine]]
+        poses = _upload(self.poses[mine], dev)
         for _ in range(int(iteration)):
             data = [
                 refine_inputs(meshes[o], poses[o:o + 1], Ks[o], rgbs[o], xyz_maps[o],
@@ -160,5 +185,9 @@ class MultiObjectTracker:
                                  Ks[o], data[o]["tf_to_crops"], diameters[o], cfg=cfg)
                 for o in range(O)
             ])
+        if self.device_mesh is not None:
+            from foundationpose_tpu_torch.parallel.mesh import all_gather_rows
+
+            poses = all_gather_rows(self.device_mesh, poses, self.device_mesh.axis_names[0])
         self.poses = poses.cpu().numpy()
         return self.get_poses()

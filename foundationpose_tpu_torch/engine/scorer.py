@@ -15,7 +15,7 @@ import torch
 
 from foundationpose_tpu_torch import resolve_device
 from foundationpose_tpu_torch.engine.crop import make_crop_batch
-from foundationpose_tpu_torch.engine.geometric import GeometricConfig, _geo_score
+from foundationpose_tpu_torch.engine.geometric import GeometricConfig, geo_score
 from foundationpose_tpu_torch.engine.refiner import net_dtype, seeded_init
 from foundationpose_tpu_torch.models.score_net import ScoreNetMultiPair
 
@@ -50,9 +50,17 @@ class PoseScorer:
 
     @torch.no_grad()
     def score(self, mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
-              out_size=None, gate_px=0):
-        """poses: (N,4,4) -> scores (N,) float32 tensor on the device."""
+              out_size=None, gate_px=0, device_mesh=None):
+        """poses: (N,4,4) -> scores (N,) float32 tensor on the device. With a
+        ``device_mesh`` (first axis; N splits evenly over it) each process
+        renders and encodes its slice of the hypotheses, the pair features
+        are gathered in order, and every process ranks all N."""
         cfg = self.cfg
+        n = poses.shape[0]
+        if device_mesh is not None:
+            from foundationpose_tpu_torch.parallel.mesh import shard_batch
+
+            poses = shard_batch(device_mesh, poses, device_mesh.axis_names[0])
         data = make_crop_batch(
             mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
             crop_ratio=cfg.crop_ratio, out_size=int(out_size or cfg.input_size),
@@ -60,8 +68,15 @@ class PoseScorer:
             z_invalid_thres=0.1,  # scorer-dataset semantics
             backface_cull=cfg.backface_cull, gate_px=int(gate_px),
         )
-        out = self.net(data["inputA"], data["inputB"], data["inputA"].shape[0])
-        return out["score_logit"].reshape(-1)
+        if device_mesh is None:
+            return self.net(data["inputA"], data["inputB"], n)["score_logit"].reshape(-1)
+        from foundationpose_tpu_torch.parallel.mesh import all_gather_rows
+
+        feats = self.net.pair_features(data["inputA"], data["inputB"])
+        # gathered in float32: exact for bf16 features, and both backends reduce it
+        feats = all_gather_rows(device_mesh, feats.float(),
+                                device_mesh.axis_names[0]).to(feats.dtype)
+        return self.net.rank(feats, n)["score_logit"].reshape(-1)
 
 
 
@@ -100,10 +115,10 @@ class HybridScorer:
         return self.learned.net
 
     def score(self, mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
-              out_size=None, gate_px=0):
-        s = self.learned.score(mesh_tensors, rgb, xyz_map, K, poses,
-                               mesh_diameter, out_size=out_size, gate_px=gate_px)
-        g = _geo_score(self.geo_cfg, mesh_tensors, poses, K, rgb, xyz_map,
-                       mesh_diameter, gate_px=gate_px)
+              out_size=None, gate_px=0, device_mesh=None):
+        s = self.learned.score(mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
+                               out_size=out_size, gate_px=gate_px, device_mesh=device_mesh)
+        g = geo_score(self.geo_cfg, mesh_tensors, poses, K, rgb, xyz_map,
+                      mesh_diameter, gate_px=gate_px, device_mesh=device_mesh)
         return s + self.weight * g
 

@@ -19,6 +19,21 @@ The per-frame pose array makes training a gradient-based bundle adjustment:
 poses and map are optimised jointly, as the reference couples them
 (nerf_runner.py:769-771). OpenCV camera convention throughout.
 
+With a ``device_mesh`` (``parallel.mesh.Mesh``, first axis) the step is
+data-parallel over the rays, as the JAX package's jitted step is on a sharded
+ray batch. Parameters and both optimisers' states are process 0's
+(``replicate``); every process builds the rays, the occupancy grid and the
+draws of the WHOLE step itself (deterministic host arithmetic, and one
+generator seeded alike on every process) and takes its slice of the draws, so
+a sharded step sees exactly the draws of an unsharded one. Each mean of the
+loss divides the process's sum by the global count (its slice's mean over the
+axis size), the eikonal ratio's denominator is summed over the processes
+before the backward pass, and the parameter regularisers are added on
+process 0 only; so the SUM of the processes' losses is the global loss. The
+gradients are then summed over the processes (``all_reduce_grads``) before
+both optimisers, and the aux terms for logging. ``n_rand`` must split evenly
+(``ValueError`` otherwise).
+
 Checkpoints are ``torch.save`` files under the JAX package's file names. The
 JAX package pickles optax state objects, which cannot be unpickled without
 optax; the port does not read them.
@@ -133,13 +148,23 @@ class NeRFRunner:
     depths (N,H,W) in normalized units (BAD_DEPTH sentinel for invalid),
     masks (N,H,W), poses (N,4,4) cam-in-object normalized (CV convention),
     K (3,3), occ_points (M,3) fused cloud in [-1,1]. ``device=None`` means
-    cuda and raises without one.
+    cuda and raises without one. ``device_mesh`` shards the ray batch
+    (module docstring).
     """
 
     def __init__(self, cfg: FieldConfig, rgbs, depths, masks, poses, K, occ_points,
-                 sc_factor, translation, device=None):
+                 sc_factor, translation, device=None, device_mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.device_mesh = device_mesh
+        self.world = 1  # processes the ray batch is split over
+        if device_mesh is not None:
+            if device_mesh.device.type != self.device.type:
+                raise ValueError(f"device mesh on {device_mesh.device}, runner on {self.device}")
+            self.world = device_mesh.size(device_mesh.axis_names[0])
+            if cfg.n_rand % self.world:
+                raise ValueError(f"n_rand={cfg.n_rand} does not split evenly over "
+                                 f"{self.world} processes")
         self.sc_factor = float(sc_factor)
         self.translation = np.asarray(translation, dtype=np.float64)
         self.K = np.asarray(K, dtype=np.float64)
@@ -176,6 +201,13 @@ class NeRFRunner:
             seed=cfg.seed,
         ).to(self.device)
         self._make_optimizers()
+        if device_mesh is not None:
+            from foundationpose_tpu_torch.parallel.mesh import replicate
+
+            self.field.load_state_dict(replicate(device_mesh, dict(self.field.state_dict())))
+            for opt in (self.opt, self.opt_pose):
+                if opt is not None:
+                    opt.load_state_dict(replicate(device_mesh, opt.state_dict()))
         self.c2w = torch.as_tensor(self.poses, device=self.device)
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
 
@@ -235,7 +267,8 @@ class NeRFRunner:
     def draw(self):
         """One step's random draws, from the runner's generator on its
         device: ray ids, and the uniforms of the stratified and the depth-band
-        samples (and of the importance samples when ``n_importance``)."""
+        samples (and of the importance samples when ``n_importance``). The
+        whole step's, also with a device mesh."""
         cfg, g, dev = self.cfg, self.gen, self.device
         n = cfg.n_rand
         d = {
@@ -249,8 +282,11 @@ class NeRFRunner:
 
     def loss_fn(self, batch, draws):
         """Loss and the aux dict of loss terms (device tensors) for one ray
-        batch (n_rand, 10) and its sample draws."""
-        cfg, field, occ = self.cfg, self.field, self.occ_grid
+        batch (n_rand, 10) and its sample draws; with a device mesh, this
+        process's share of them for its slice of the rays (module docstring)."""
+        cfg, field, occ, world = self.cfg, self.field, self.occ_grid, self.world
+        primary = self.device_mesh is None or self.device_mesh.index(
+            self.device_mesh.axis_names[0]) == 0
         trunc = cfg.trunc * self.sc_factor
         near_n = cfg.near * self.sc_factor
         far_n = cfg.far * self.sc_factor
@@ -302,17 +338,21 @@ class NeRFRunner:
         weights = losses_mod.depth_band_weights(
             z_vals, target_d, trunc, cfg.sdf_lambda, far_n, cfg.neg_trunc_ratio) * valid
         rgb_map = losses_mod.render_rgb(raw, weights)
-        rgb_loss = cfg.rgb_weight * torch.mean((rgb_map - target_rgb) ** 2 * ray_w[:, None])
+        # every mean is this slice's mean over the axis size: the global
+        # count's share of the slice's sum (exact division by 1 unsharded)
+        rgb_loss = cfg.rgb_weight * torch.mean(
+            (rgb_map - target_rgb) ** 2 * ray_w[:, None]) / world
 
         fs, sdf_l, empty, front_m, _ = losses_mod.sdf_losses(
             z_vals, target_d, sdf, trunc, sample_w, near_n, far_n,
             cfg.neg_trunc_ratio, cfg.fs_sdf)
+        fs, sdf_l, empty = fs / world, sdf_l / world, empty / world
         loss = rgb_loss + cfg.fs_weight * fs + cfg.trunc_weight * sdf_l + cfg.empty_weight * empty
         if cfg.fs_rgb_weight > 0:
             # free-space colour pushed to white (nerf_runner.py:559-562)
             loss = loss + cfg.fs_rgb_weight * torch.mean(
                 ((torch.sigmoid(raw[..., :3]) - 1.0) * front_m[..., None]) ** 2
-                * sample_w[..., None])
+                * sample_w[..., None]) / world
         if cfg.eikonal_weight > 0:
             # |grad sdf| -> 1 near the surface (nerf_runner.py:564-568): the
             # per-point gradient, kept in the graph so the loss on it is
@@ -324,11 +364,17 @@ class NeRFRunner:
             g = g.reshape(pts.shape)
             near_surf = (sdf < 1.0) & valid
             gnorm = torch.linalg.norm(g, dim=-1)
+            n_near = near_surf.sum()
+            if self.device_mesh is not None:  # the global count, before the backward pass
+                from foundationpose_tpu_torch.parallel.mesh import all_sum
+
+                n_near = all_sum(self.device_mesh, n_near, self.device_mesh.axis_names[0])
             loss = loss + cfg.eikonal_weight * (
-                torch.sum((gnorm - 1.0) ** 2 * near_surf) / near_surf.sum().clamp_min(1))
-        if cfg.frame_features > 0:
+                torch.sum((gnorm - 1.0) ** 2 * near_surf) / n_near.clamp_min(1))
+        # regularisers on parameters: once over the processes
+        if cfg.frame_features > 0 and primary:
             loss = loss + cfg.feature_reg_weight * torch.mean(field.feature_array ** 2)
-        if cfg.optimize_poses and cfg.pose_reg_weight > 0:
+        if cfg.optimize_poses and cfg.pose_reg_weight > 0 and primary:
             loss = loss + cfg.pose_reg_weight * torch.linalg.norm(field.pose_array[1:])
         aux = {
             "loss": loss,
@@ -340,11 +386,27 @@ class NeRFRunner:
     def grads(self, draws):
         """Loss, aux and the gradient of every parameter for one step's
         draws, without updating anything (what the tests hold against the
-        JAX step)."""
+        JAX step). With a device mesh: this process's slice of the draws, and
+        the global loss, aux and gradients on every process."""
         self.field.zero_grad(set_to_none=True)
+        mesh = self.device_mesh
+        if mesh is not None:
+            from foundationpose_tpu_torch.parallel.mesh import shard_batch
+
+            draws = shard_batch(mesh, draws, mesh.axis_names[0])
         loss, aux = self.loss_fn(self.rays[draws["ids"]], draws)
         loss.backward()
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+        aux = {k: v.detach() for k, v in aux.items()}
+        if mesh is None:
+            return loss.detach(), aux
+        from foundationpose_tpu_torch.parallel.mesh import all_reduce_grads, all_sum
+
+        axis = mesh.axis_names[0]
+        all_reduce_grads(mesh, self.field.parameters(), axis)
+        # one reduce for every aux term, in float64 (exact for the counts)
+        summed = all_sum(mesh, torch.stack([v.double() for v in aux.values()]), axis)
+        aux = {k: s.to(v.dtype) for (k, v), s in zip(aux.items(), summed)}
+        return aux["loss"], aux
 
     def train_step(self, draws=None):
         """One step: draws (from the generator unless given), loss, backward,

@@ -232,14 +232,26 @@ def refine_batch_from_poses(mesh_tensors, K, mesh_diameter, gt, hyp, input_size=
 @torch.no_grad()
 def make_refine_batch(gen, mesh_tensors, K, mesh_diameter, batch=32, input_size=160,
                       crop_ratio=1.2, trans_scale=0.02, rot_scale=0.3490658503988659,
-                      normalize_xyz=True, augment=False):
+                      normalize_xyz=True, augment=False, mesh=None):
     """Returns dict: A (B,S,S,6) hypothesis crops, B (B,S,S,6) observed crops,
     trans_gt (B,3), rot_gt (B,3,3) — the egocentric deltas A->B — and the
     poses. ``gen`` lives on the mesh tensors' device. ``augment=True``
-    randomises the observed side (distractor, background, holes, occluders)."""
-    gt = poses_from_draws(draw_poses(gen, batch))
-    hyp = perturb_from_draws(gt, draw_perturb(gen, batch, trans_scale, rot_scale))
+    randomises the observed side (distractor, background, holes, occluders).
+
+    With a device ``mesh`` (``parallel.mesh.Mesh``, first axis), every
+    process draws the whole batch's draws from its generator (seeded alike on
+    every process) and renders only its slice of them: the slices of one step
+    make up the batch an unsharded call draws. ``batch`` must split evenly
+    (``ValueError`` otherwise)."""
+    gt_d = draw_poses(gen, batch)
+    p_d = draw_perturb(gen, batch, trans_scale, rot_scale)
     aug = _draw_aug(gen, batch, int(input_size), augment)
+    if mesh is not None:
+        from foundationpose_tpu_torch.parallel.mesh import shard_batch
+
+        gt_d, p_d, aug = shard_batch(mesh, (gt_d, p_d, aug), mesh.axis_names[0])
+    gt = poses_from_draws(gt_d)
+    hyp = perturb_from_draws(gt, p_d)
     return refine_batch_from_poses(mesh_tensors, K, mesh_diameter, gt, hyp, input_size,
                                    crop_ratio, normalize_xyz, aug)
 

@@ -39,7 +39,12 @@ class ScoreNetMultiPair(nn.Module):
     def forward(self, A, B, L):
         """A/B: (B*L,H,W,c_in); L: hypotheses per frame.
         Returns {'score_logit': (B, L)} float32."""
-        bs = A.shape[0]
+        return self.rank(self.pair_features(A, B), L)
+
+    def pair_features(self, A, B):
+        """The per-pair half: each (rendered, observed) crop pair on its own
+        -> (N, 512) pooled feature. Nothing crosses the batch axis, so a
+        sharded scorer encodes its slice and gathers the features."""
         tokens, grid_hw = encode_pair(self.encoderA, self.encoderAB, A, B, self.dtype)
         tokens = self.pos_embed(
             tokens,
@@ -48,7 +53,12 @@ class ScoreNetMultiPair(nn.Module):
         )
         att = self.att(tokens)
         tokens = tokens + att if self.residual_attn else att
-        feats = tokens.mean(dim=1).reshape(bs // L, L, -1)  # (B,L,512)
+        return tokens.mean(dim=1)
+
+    def rank(self, feats, L):
+        """The cross-pose half: (B*L, 512) pair features -> {'score_logit':
+        (B, L)} float32, attention across the L hypotheses of each frame."""
+        feats = feats.reshape(feats.shape[0] // L, L, -1)  # (B,L,512)
         cross = self.att_cross(feats)
         feats = feats + cross if self.residual_attn else cross
         return {"score_logit": self.linear(feats)[..., 0].float()}

@@ -180,24 +180,45 @@ class Optimizer:
 # train steps: forward, backward, one update; the loss stays on the device
 
 
-def _step(net, opt, loss_fn):
+def _step(net, opt, loss_fn, mesh=None):
+    """One update. With a ``mesh`` (``parallel.mesh.Mesh``, first axis) the
+    step is data-parallel, as the JAX package's jitted step is on a sharded
+    batch: each process passes its equal slice of the global batch, its loss
+    (a mean over the slice) is divided by the axis size so that the SUM over
+    processes is the mean over the global batch, and the gradients are summed
+    over the processes (``all_reduce_grads``) BEFORE the optimiser, whose clip
+    and non-finite test must see the global gradient (per-process ones would
+    clip otherwise, and a per-process skip would part the replicas for good).
+    Returns the global loss on every process."""
     for p in opt.params:
         p.grad = None
     loss = loss_fn()
-    loss.backward()
+    if mesh is not None:
+        from foundationpose_tpu_torch.parallel.mesh import all_reduce_grads, all_sum
+
+        axis = mesh.axis_names[0]
+        loss = loss / mesh.size(axis)
+        loss.backward()
+        all_reduce_grads(mesh, opt.params, axis)
+        loss = all_sum(mesh, loss.detach(), axis)
+    else:
+        loss.backward()
     opt.step()
     return loss.detach()
 
 
-def refiner_train_step(net, opt, batch, mesh_diameter=0.2):
-    return _step(net, opt, lambda: refiner_loss(net, batch, mesh_diameter))
+def refiner_train_step(net, opt, batch, mesh_diameter=0.2, mesh=None):
+    """One RefineNet update on ``batch``; with ``mesh``, this process's slice
+    of a data-parallel step (``_step``; ``datagen.make_refine_batch(mesh=)``
+    makes the slice)."""
+    return _step(net, opt, lambda: refiner_loss(net, batch, mesh_diameter), mesh)
 
 
-def refiner_train_step_multimesh(net, opt, batch, mesh_diameter):
+def refiner_train_step_multimesh(net, opt, batch, mesh_diameter, mesh=None):
     """``refiner_train_step`` for the corpus trainer, whose mesh changes every
     step: ``mesh_diameter`` is a 0-d tensor on the device (the corpus's
     diameters are uploaded once), so choosing a mesh reads nothing back."""
-    return _step(net, opt, lambda: refiner_loss(net, batch, mesh_diameter))
+    return _step(net, opt, lambda: refiner_loss(net, batch, mesh_diameter), mesh)
 
 
 def scorer_train_step(net, opt, batch, mode="listwise"):

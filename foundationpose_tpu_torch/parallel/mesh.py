@@ -5,9 +5,13 @@ Counterpart of foundationpose_tpu/parallel/mesh.py. The JAX package lays a
 each process drives one device, a :class:`Mesh` names the processes of the
 group along its axes, and the sharded paths call the collectives themselves:
 
-- ``batch`` axis: pose hypotheses (``register``) and BA landmarks; each
+- ``batch`` axis: pose hypotheses (``register``), BA landmarks, training
+  samples (the refiner's data-parallel step), rays (the field step), objects
+  (``MultiObjectTracker``) and image rows (``register``'s preprocess); each
   process computes its slice of the leading axis and the slices are gathered
-  (``all_gather_rows``) or their partial sums added (``all_sum``).
+  (``all_gather_rows``) or their partial sums added (``all_sum``,
+  ``all_reduce_grads``). A stencil over the leading axis takes its slice with
+  a halo of the neighbouring slices' rows (``shard_rows``).
 
 Without an initialised process group a mesh has one process and every
 collective is the identity, so a sharded path runs unchanged.
@@ -84,6 +88,8 @@ def get_mesh():
 
 
 def _tree_map(fn, tree):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -152,3 +158,44 @@ def all_gather_rows(mesh: Mesh, x, axis: str = "batch"):
     i = mesh.index(axis)
     buf[i * per:(i + 1) * per] = x
     return all_sum(mesh, buf, axis)
+
+
+def shard_rows(mesh: Mesh, x, halo: int, axis: str = "batch", wrap: bool = False):
+    """This process's slice of the leading axis of ``x`` with up to ``halo``
+    rows of the neighbouring slices on each side: ``(rows, (lo, hi))``, where
+    ``rows[lo:len(rows) - hi]`` is the slice itself, so ``all_gather_rows`` of
+    that interior inverts it. Without ``wrap`` the halo stops at the two ends
+    of ``x`` (an image's first and last rows have no neighbours); with
+    ``wrap`` it continues round them (a ``roll`` over the whole axis). The
+    leading axis must split evenly over ``axis``."""
+    n, i = mesh.size(axis), mesh.index(axis)
+    x = _as_tensor(x, mesh.device)
+    if x.shape[0] % n:
+        raise ValueError(f"leading axis {x.shape[0]} is not a multiple of the "
+                         f"{axis!r} axis size {n}")
+    per, N = x.shape[0] // n, x.shape[0]
+    start, stop = i * per, (i + 1) * per
+    if wrap:
+        idx = torch.arange(start - halo, stop + halo, device=x.device) % N
+        return x.index_select(0, idx), (halo, halo)
+    lo, hi = min(halo, start), min(halo, N - stop)
+    return x[start - lo:stop + hi], (lo, hi)
+
+
+def all_reduce_grads(mesh: Mesh, params, axis: str = "batch"):
+    """Sum every parameter's ``.grad`` over the processes of ``axis`` in ONE
+    all_reduce: the gradients are flattened into one buffer, reduced, and
+    copied back (a parameter without a gradient contributes zeros and gets
+    the sum). Returns the buffer's size in bytes (0 on one process)."""
+    params = [p for p in params if p.requires_grad]
+    if mesh.size(axis) == 1 or not params:
+        return 0
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    at = 0
+    for p, g in zip(params, grads):
+        k = g.numel()
+        p.grad = flat[at:at + k].view_as(g)
+        at += k
+    return flat.numel() * flat.element_size()
