@@ -51,7 +51,12 @@ bf16 nets from the shipped object-agnostic checkpoint where a net runs):
   rays/s at world 1 and 2); then the same ranks over nccl (expected to be
   refused: two ranks on one device). This checks the collectives' code path,
   not NCCL and not more than one card (``md_cards`` runs the phase over nccl
-  with one rank per card).
+  with one rank per card);
+- ``surface``: ``demo_synthetic --out-dir`` with one tracked frame, its seven
+  artefacts held against the scene it renders; K1s and K1r timed part by
+  part (``apps/profile_raster.py``) at the 4096-face textured crop and the
+  main path's, each part held against the full kernel; and the check that
+  every path launched the default build of both kernels, no part's library.
 
 It builds every CUDA kernel of those paths (K1s: face setup and tile binning,
 K1r: the crop rasterizer) from the sources in this checkout, holds each
@@ -84,24 +89,7 @@ import time
 
 import numpy as np
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
-# float32 rate outside the tensor cores. The kernels' bounds are stated against
-# these whatever the card's power limit, which is printed beside them.
-MEM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-# Float32 operations per pixel x face test that survives tile binning:
-# three barycentrics (2 mul + 2 add each) and three compares. The 1/z score
-# of the tests that pass and the per-pixel attribute pass are counted apart.
-OPS_PER_TEST = 15
-OPS_PER_INSIDE = 6     # 3 mul + 2 add + 1 compare for the 1/z score
-OPS_PER_HIT_PIXEL = 80  # winner gather + perspective-correct interpolation
-OPS_PER_TEXEL_PIXEL = 50  # four taps x three channels, weights, lighting
-# K1s: camera transform + normal + diffuse per vertex; three projections,
-# area, nine coefficients, three reciprocals, box per face; four compares
-# per (face, tile) pair for the bins.
-OPS_PER_VERTEX = 40
-OPS_PER_FACE = 220
-OPS_PER_FACE_TILE = 4
+from foundationpose_tpu_torch.utils.profiling import device_ms, event_ms, nvidia_smi_line
 
 ADDS_GATE = 0.10       # of the mesh diameter
 # Geometric mode lands closer on the demo scene: the JAX package, on the CPU,
@@ -124,129 +112,14 @@ def fail(msg):
     sys.exit(1)
 
 
-def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if out.returncode != 0:
-        fail(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
-
-
-def event_ms(fn, reps):
-    import torch
-
-    fn()  # warm
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def device_ms(fn, reps, kernel_names):
-    """Device time per launch of the named kernels over ``reps`` calls of
-    ``fn``, from the profiler's kernel records (no host time in it). None for
-    a kernel the profiler did not see."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(kernel_names)
-    for e in prof.key_averages():
-        for name in kernel_names:
-            if name in e.key and e.count:
-                out[name] = e.self_device_time_total / e.count / 1e3
-    return out
-
-
-def tensor_bytes(*trees):
-    n = 0
-    for tree in trees:
-        vals = tree.values() if isinstance(tree, dict) else [tree]
-        n += sum(v.numel() * v.element_size() for v in vals if hasattr(v, "numel"))
-    return n
-
-
-def bound(nbytes, ops, **extra):
-    """Least time the card could take: bytes over the memory rate against
-    float32 operations over the float32 rate, whichever is larger."""
-    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOP_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
-            "bytes": nbytes, "operations": ops, **extra}
-
-
-def k1_bounds(raster_cuda, mt, poses, K, tfs, scratch, out, size=S, hw=None):
-    """Bounds of one render call on these inputs, from what this run's data
-    needs. ``call``: the arguments read once and the outputs written once
-    (``rec``, ``bins`` and ``vtab`` are scratch between the two kernels and do
-    not count) against the pixel x face tests left after binning, the 1/z
-    scores of the tests that pass (counted as 2 per hit pixel, a pixel lying
-    inside few faces) and the attribute pass per hit pixel. ``K1s`` and
-    ``K1r``: each kernel alone, its own inputs read once and its own outputs
-    written once — so the scratch counts there: a valid face's record is 64
-    bytes written (48 read), an invalid one's 16, and every bin word is
-    written and read."""
-    B, V, F = poses.shape[0], mt["pos"].shape[0], mt["faces"].shape[0]
-    H, W = hw or (size, size)
-    rec, bins = scratch["rec"], scratch["bins"]
-    tests = raster_cuda.tile_face_tests(rec, H, W)
-    n_valid = int((rec[..., 12] <= rec[..., 13]).sum().item())
-    hit = int(out["mask"].sum().item())
-    px_ops = hit * (OPS_PER_HIT_PIXEL + (OPS_PER_TEXEL_PIXEL if "tex" in mt else 0))
-    raster_ops = tests * OPS_PER_TEST + 2 * hit * OPS_PER_INSIDE + px_ops
-    setup_ops = B * (V * OPS_PER_VERTEX + F * OPS_PER_FACE
-                     + F * bins.shape[1] * OPS_PER_FACE_TILE)
-    geometry = tensor_bytes(mt["pos"], mt["vnormals"], mt["faces"], poses, K, tfs)
-    colour = tensor_bytes({k: v for k, v in mt.items() if k in ("tex", "uv", "vertex_color")})
-    rec_written = n_valid * 64 + (B * F - n_valid) * 16
-    scratch_read = n_valid * 48 + tensor_bytes(bins, scratch["vtab"])
-    extra = {"pixel_face_tests": tests, "pixel_face_tests_untiled": B * H * W * F,
-             "valid_faces": n_valid, "hit_pixels": hit}
-    return {
-        "call": bound(geometry + colour + tensor_bytes(out), setup_ops + raster_ops, **extra),
-        "K1s": bound(geometry + rec_written + tensor_bytes(bins, scratch["vtab"]), setup_ops),
-        "K1r": bound(scratch_read + tensor_bytes(mt["faces"]) + colour + tensor_bytes(out),
-                     raster_ops),
-    }
-
-
 def kernel_cases(scene_mesh):
     """(name, mesh, max_faces) of the meshes the kernels are checked on."""
-    from foundationpose_tpu_torch.core import meshio
+    from foundationpose_tpu_torch.apps.profile_raster import coloured_sphere, textured_sphere
 
-    rng = np.random.default_rng(0)
-    sph = meshio.make_icosphere_mesh(subdivisions=3, radius=0.06)  # 1280 faces
-    sph.vertex_colors = (np.abs(sph.vertices) / 0.06 * 255).astype(np.uint8)
-    tex_mesh = meshio.make_icosphere_mesh(subdivisions=5, radius=0.06)  # 20480 faces
-    v = tex_mesh.vertices / 0.06
-    tex_mesh.uv = np.stack(
-        [np.arctan2(v[:, 1], v[:, 0]) / (2 * np.pi) + 0.5, np.arccos(np.clip(v[:, 2], -1, 1)) / np.pi],
-        axis=-1,
-    )
-    yy, xx = np.mgrid[0:256, 0:256]
-    tex = np.stack(
-        [127 + 120 * np.sin(xx / 9.0), 127 + 120 * np.cos(yy / 7.0), 127 + 100 * np.sin((xx + yy) / 13.0)],
-        axis=-1,
-    )
-    tex_mesh.texture = np.clip(tex + rng.normal(0, 4, tex.shape), 0, 255).astype(np.uint8)
     return [
         ("demo_lshape", scene_mesh, None),
-        ("icosphere_1280_vcol", sph, None),
-        ("textured_cap_4096", tex_mesh, 4096),
+        ("icosphere_1280_vcol", coloured_sphere(3, 0.06), None),
+        ("textured_cap_4096", textured_sphere(), 4096),
     ]
 
 
@@ -553,6 +426,8 @@ def time_render(raster, raster_cuda, torch, name, mt, poses, K, tfs, hw, with_no
     plain (the second plain turn left out when ``plain_twice`` is false: a
     plain call at the bake's shape takes seconds). ``with_tri_bary``: the
     texture bake's call (winning faces and barycentrics written too)."""
+    from foundationpose_tpu_torch.ops.raster_bounds import k1_bounds
+
     kw = dict(out_hw=hw, backface_cull=cull, with_normal=with_normal, use_light=use_light)
     call_kw = dict(kw, with_tri=with_tri_bary, with_bary=with_tri_bary)
     setup_fn = lambda: raster_cuda.setup_cuda(mt, poses, K, tfs, hw, backface_cull=cull)
@@ -567,7 +442,7 @@ def time_render(raster, raster_cuda, torch, name, mt, poses, K, tfs, hw, with_no
     c1 = event_ms(call_fn, 30)
     c2 = event_ms(call_fn, 30)
     p2 = event_ms(plain_fn, 1) if plain_twice else p1
-    bounds = k1_bounds(raster_cuda, mt, poses, K, tfs, scratch, call_fn(), hw=hw)
+    bounds = k1_bounds(mt, poses, K, tfs, scratch, call_fn(), hw)
     dev_ms = device_ms(call_fn, 20, ("setup_kernel", "raster_kernel"))
     return {
         "case": name, "with_normal": with_normal,
@@ -3015,6 +2890,99 @@ def run_multi_device(torch, raster_cuda, ba_problem, smi, field_in, backend="glo
             summed("multi_sharded_launches")}
 
 
+SURFACE_SHAPES = ("textured4096_B256_112px", "main_B256_160px")  # profile_raster's, lead first
+SURFACE_REPS = 30
+
+
+def corners_equal(a, b, tol=1e-6):
+    """Two meshes have the same faces, corner by corner (a mesh file read
+    back may number its vertices otherwise)."""
+    return a.faces.shape == b.faces.shape and bool(
+        np.abs(a.vertices[a.faces] - b.vertices[b.faces]).max() <= tol)
+
+
+def run_surface_phase(torch, raster_cuda, k1_parts, smi):
+    """``demo_synthetic.main(["--out-dir", ..., "--frames", "1"])`` on the
+    card, launches counted from zero, its seven artefacts checked against
+    the scene it renders; ``profile_raster`` at the 4096-face textured shape
+    and the main path's, its rows printed beside their bounds; and the
+    default build is the library every path launched: every launch function
+    this process called lies, by its address, in the library of a source
+    built with no part switch, and in no part's. Returns the demo's launch
+    counts."""
+    import tempfile
+
+    from foundationpose_tpu_torch.apps import demo_synthetic as demo, profile_raster
+    from foundationpose_tpu_torch.core import meshio
+    from foundationpose_tpu_torch.io import png
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches(raster_cuda)
+        err = demo.main(["--out-dir", tmp, "--frames", "1"])
+        # scene + frame renders (1 + 1), register (11), one tracked frame (4)
+        launches = expect_launches(raster_cuda, dict.fromkeys(raster_cuda.LAUNCHES, 0), 17,
+                                   "demo_synthetic --out-dir, 1 frame")
+        demo_s = time.perf_counter() - t0
+        missing = [f for f in demo.ARTEFACTS if not os.path.isfile(os.path.join(tmp, f))]
+        if missing:
+            fail(f"surface: demo_synthetic --out-dir wrote no {missing}")
+        scene = demo.make_scene((480, 640), device="cuda")
+        art = lambda f: os.path.join(tmp, f)  # noqa: E731
+        checks = {
+            "rgb.png": np.array_equal(png.read_png(art("rgb.png")), scene["rgb"]),
+            "mask.png": np.array_equal(png.read_png(art("mask.png")),
+                                       scene["mask"].astype(np.uint8) * 255),
+            "depth.npy": np.array_equal(np.load(art("depth.npy")), scene["depth"]),
+            "cam_K.txt": np.array_equal(np.loadtxt(art("cam_K.txt")), scene["K"]),
+            "gt_pose.txt": np.array_equal(np.loadtxt(art("gt_pose.txt")), scene["gt"]),
+            "object.obj": corners_equal(meshio.load_obj(art("object.obj")), scene["mesh"]),
+            "vis_register.png": png.read_png(art("vis_register.png")).shape == scene["rgb"].shape,
+        }
+        if not all(checks.values()):
+            fail(f"surface: demo artefacts differ from the scene it renders: {checks}")
+    diameter = meshio.compute_mesh_diameter(mesh=scene["mesh"])
+    if not err <= ADDS_GATE * diameter:
+        fail(f"surface: demo register ADD-S {err * 1000:.2f} mm over {ADDS_GATE:.0%} of the "
+             f"{diameter * 1000:.0f} mm diameter")
+
+    t1 = time.perf_counter()
+    rows = profile_raster.run(SURFACE_SHAPES, reps=SURFACE_REPS, parts=k1_parts)
+    profile_s = time.perf_counter() - t1
+
+    # the default build is what every path launched: the files the dynamic
+    # loader places every launch function in that this process called, from
+    # the first phase to the demo and the timer's whole calls, are the
+    # libraries of the sources built with no switch, and no part's
+    specs = raster_cuda.default_specs()
+    if any(f.startswith("-D") for _, flags in specs.values() for f in flags):
+        fail("surface: the default build defines a switch")
+    expected = {name: os.path.realpath(raster_cuda.library_path(name, *spec))
+                for name, spec in specs.items()}
+    part_files = {k: os.path.realpath(v) for k, v in k1_parts[2].items() if k not in expected}
+    launched = raster_cuda.launched_libraries()
+    if launched != {name: {f} for name, f in expected.items()}:
+        fail(f"surface: the render calls launched {launched}, not the default build {expected}")
+    if set(part_files.values()) & set(expected.values()) or len(part_files) != 4:
+        fail(f"surface: the parts' libraries {part_files} are not apart from the default build")
+    timed_full = {"K1s": raster_cuda.library_file(k1_parts[0]["setup+bins"]),
+                  "K1r": raster_cuda.library_file(k1_parts[1]["+staged stores"])}
+    if timed_full != expected:
+        fail(f"surface: the parts timer's full kernels {timed_full} are not the ones the "
+             f"paths launch {expected}")
+    say("surface", demo={"artefacts": checks, "add_s_mm": err * 1000, "launches": launches,
+                         "seconds": demo_s},
+        profile_raster={"shapes": list(SURFACE_SHAPES), "reps": SURFACE_REPS,
+                        "seconds": profile_s,
+                        "rows": [{"shape": r["shape"], "call": r["call"], "parts": r["parts"],
+                                  "checks": r["checks"]} for r in rows]},
+        default_build={"launched": {k: sorted(os.path.basename(f) for f in v)
+                                    for k, v in launched.items()},
+                       "parts": {k: os.path.basename(v) for k, v in part_files.items()}},
+        seconds=time.perf_counter() - t0, card=smi)
+    return launches
+
+
 def md_cards(world=4):
     """The multi_device phase alone over nccl, one rank per card, on a
     machine with ``world`` cards (not run by ``main``, which needs one card):
@@ -3064,11 +3032,14 @@ def main():
     # (one compiler process per source, side by side), and the port's host
     # library (g++, pose clustering)
     from foundationpose_tpu_torch import native
+    from foundationpose_tpu_torch.apps import profile_raster
 
     t0 = time.perf_counter()
     gxx = subprocess.Popen([sys.executable, "-c", "from foundationpose_tpu_torch import native; "
                             "native.build()"], cwd=os.path.dirname(os.path.abspath(__file__)))
-    raster_cuda.build()
+    # K1s, K1r and their parts (the surface phase times them): every nvcc at once
+    k1_parts = profile_raster.build_parts(raster_cuda.BUILD_LOG)
+    nvcc_s = time.perf_counter() - t0
     if gxx.wait() != 0:
         fail("the host library native/cluster.cpp did not build (is g++ installed?)")
     native.build()
@@ -3077,7 +3048,7 @@ def main():
     say("build", kernels=sources, seconds=time.perf_counter() - t0,
         host_library={"source": os.path.relpath(native.SOURCE, os.path.dirname(
             os.path.abspath(__file__))), "compiler": shutil.which("g++"), "flags": native.FLAGS},
-        nvcc_seconds=raster_cuda.BUILD_SECONDS,
+        nvcc_seconds=nvcc_s,
         ptxas={k: [l for l in log.splitlines() if "registers" in l or "spill" in l]
                for k, log in raster_cuda.BUILD_LOG.items()})
 
@@ -3180,6 +3151,8 @@ def main():
     by_path["ModelFreeTracker: init, steps, retrains, pose-graph BA, finalize + bake"], slam_k, \
         ba_problem = run_slam_phase(torch, demo, raster, raster_cuda, smi)
     by_path.update(run_multi_device(torch, raster_cuda, ba_problem, smi, field_in))
+    by_path["demo_synthetic --out-dir (render, register, 1 tracked frame)"] = \
+        run_surface_phase(torch, raster_cuda, k1_parts, smi)
     all_launches = {}
     for counts in by_path.values():
         add_counts(all_launches, counts)

@@ -6,7 +6,14 @@ Counterpart of foundationpose_tpu/apps/demo_synthetic.py (same chiral
 L-shaped object, same pose, same per-frame motion). ``make_scene`` and
 ``motion_frames`` are shared with ``chip_smoke.py`` at the repository root.
 
-Usage: python -m foundationpose_tpu_torch.apps.demo_synthetic [--device cpu] [--mode geometric]
+Usage: python -m foundationpose_tpu_torch.apps.demo_synthetic [--device cpu | --cpu]
+           [--mode geometric] [--out-dir DIR]
+
+``--out-dir`` writes the scene's inputs and the registered pose's picture
+there, as the JAX package's demo does: ``object.obj``, ``rgb.png``,
+``depth.npy``, ``mask.png`` (0 / 255), ``cam_K.txt``, ``gt_pose.txt`` and
+``vis_register.png`` (the pose's box and axes on the frame), through the
+port's own PNG writer.
 """
 
 from __future__ import annotations
@@ -139,17 +146,50 @@ def build_estimator(mesh, device=None, config=None, input_size=None, mode="learn
     )
 
 
+ARTEFACTS = ("object.obj", "rgb.png", "depth.npy", "mask.png", "cam_K.txt", "gt_pose.txt",
+             "vis_register.png")
+
+
+def write_inputs(out_dir, scene):
+    """The scene's mesh, first frame, intrinsics and true pose as files."""
+    from foundationpose_tpu_torch.io import png
+
+    os.makedirs(out_dir, exist_ok=True)
+    meshio.save_obj(os.path.join(out_dir, "object.obj"), scene["mesh"])
+    png.write_png(os.path.join(out_dir, "rgb.png"), scene["rgb"])
+    np.save(os.path.join(out_dir, "depth.npy"), scene["depth"])
+    png.write_png(os.path.join(out_dir, "mask.png"), scene["mask"].astype(np.uint8) * 255)
+    np.savetxt(os.path.join(out_dir, "cam_K.txt"), scene["K"])
+    np.savetxt(os.path.join(out_dir, "gt_pose.txt"), scene["gt"])
+
+
+def write_pose_picture(path, scene, pose):
+    """The registered pose's bounding box and axes drawn on the first frame."""
+    from foundationpose_tpu_torch.io import png
+    from foundationpose_tpu_torch.utils.vis import draw_posed_3d_box, draw_xyz_axis
+
+    vis = draw_posed_3d_box(scene["K"], scene["rgb"], pose, scene["mesh"].bounds)
+    png.write_png(path, draw_xyz_axis(vis, pose, scale=0.08, K=scene["K"]))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU (same as --device cpu)")
+    p.add_argument("--out-dir", default=None,
+                   help="write the scene's inputs and vis_register.png here")
     p.add_argument("--frames", type=int, default=5, help="tracking frames after register")
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--mode", choices=["learned", "geometric"], default="learned")
     args = p.parse_args(argv)
 
-    device = resolve_device(args.device)
+    if args.cpu and args.device not in (None, "cpu"):
+        p.error(f"--cpu contradicts --device {args.device}")
+    device = resolve_device("cpu" if args.cpu else args.device)
     scene = make_scene((args.height, args.width), device=device)
+    if args.out_dir:
+        write_inputs(args.out_dir, scene)
     est = build_estimator(scene["mesh"], device=device, mode=args.mode)
 
     def clock():
@@ -163,12 +203,16 @@ def main(argv=None):
     err = metrics.adds_err(pose, scene["gt"], scene["mesh"].vertices)
     print(f"register: {t_reg:.2f}s  ADD-S error {err * 1000:.1f} mm "
           f"(diameter {est.diameter * 1000:.0f} mm, device {device})")
+    if args.out_dir:
+        write_pose_picture(os.path.join(args.out_dir, "vis_register.png"), scene, pose)
     for f, (gt_f, rgb_f, depth_f) in enumerate(motion_frames(scene, args.frames)):
         t0 = clock()
         pose_f = est.track_one(rgb_f, depth_f, scene["K"])
         dt = clock() - t0
         err_f = metrics.adds_err(pose_f, gt_f, scene["mesh"].vertices)
         print(f"track frame {f}: {dt * 1000:.0f} ms  ADD-S {err_f * 1000:.1f} mm")
+    if args.out_dir:
+        print(f"artefacts in {args.out_dir}")
     return err
 
 

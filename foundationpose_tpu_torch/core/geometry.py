@@ -1,11 +1,13 @@
 """Pose and camera geometry on torch tensors.
 
 Counterpart of foundationpose_tpu/core/geometry.py, as far as the ported
-path needs it: ``normalize``, ``hat``, ``so3_exp_map``, ``so3_log_map``,
-``se3_exp_map``, ``rotation_geodesic_distance``, ``rotation_6d_to_matrix``, ``euler_matrix``, ``transform_pts``,
-``pose_to_egocentric_delta_pose``, ``egocentric_delta_pose_to_pose``,
-``project_pts``,
-``compute_crop_window_tf_batch``, ``depth2xyzmap``.
+path needs it: ``to_homo``, ``normalize``, ``hat``, ``so3_exp_map``,
+``so3_log_map``, ``se3_exp_map``, ``rotation_geodesic_distance``,
+``normalize_rotation``, ``rotation_6d_to_matrix``, ``euler_matrix``,
+``transform_pts``, ``transform_dirs``, ``pose_to_egocentric_delta_pose``,
+``egocentric_delta_pose_to_pose``, ``project_pts``,
+``projection_matrix_from_intrinsics`` (numpy, float64),
+``compute_crop_window_tf_batch``, ``depth2xyzmap``, ``depth2xyzmap_batch``.
 
 Conventions
 -----------
@@ -29,6 +31,13 @@ def as_f32(x, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
     return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
+
+
+def to_homo(pts):
+    """Append a 1 to the last axis (a tensor keeps its dtype)."""
+    pts = pts if isinstance(pts, torch.Tensor) else as_f32(pts)
+    return torch.cat([pts, torch.ones((*pts.shape[:-1], 1), dtype=pts.dtype,
+                                      device=pts.device)], dim=-1)
 
 
 def normalize(v, dim=-1, eps=1e-12):
@@ -162,6 +171,26 @@ def transform_pts(pts, tf):
     return (tf[..., :-1, :-1] @ pts[..., None] + tf[..., :-1, -1:])[..., 0]
 
 
+def transform_dirs(dirs, tf):
+    """Rotate direction vectors (..., N, 3) by the rotation blocks of
+    ``tf`` (no translation), with ``transform_pts``'s broadcasting."""
+    dirs = as_f32(dirs)
+    tf = as_f32(tf, dirs.device)
+    if tf.ndim >= 3 and tf.shape[-3] != dirs.shape[-2]:
+        tf = tf[..., None, :, :]
+    return (tf[..., :3, :3] @ dirs[..., None])[..., 0]
+
+
+def normalize_rotation(pose):
+    """Remove the per-column scale from the rotation block of (..., 4, 4)
+    poses."""
+    pose = as_f32(pose)
+    scales = torch.linalg.norm(pose[..., :3, :3], dim=-2, keepdim=True)
+    out = pose.clone()
+    out[..., :3, :3] = pose[..., :3, :3] / scales
+    return out
+
+
 def pose_to_egocentric_delta_pose(A_in_cam, B_in_cam):
     """The refiner's training target: the egocentric delta that maps pose A
     onto pose B (inverse of ``egocentric_delta_pose_to_pose``)."""
@@ -187,6 +216,24 @@ def project_pts(pts, K):
     K = as_f32(K, pts.device)
     uvw = pts @ K.T
     return uvw[..., :2] / uvw[..., 2:3].clamp_min(1e-12)
+
+
+def projection_matrix_from_intrinsics(K, height, width, znear, zfar):
+    """OpenGL projection from a Hartley-Zisserman K (the 'y_down' convention),
+    numpy float64: kept for GL interop; the port's rasterizer does not use it."""
+    K = np.asarray(K, dtype=np.float64)
+    w, h = width, height
+    depth = float(zfar - znear)
+    q = -(zfar + znear) / depth
+    qn = -2.0 * (zfar * znear) / depth
+    return np.array(
+        [
+            [2 * K[0, 0] / w, -2 * K[0, 1] / w, (-2 * K[0, 2] + w) / w, 0],
+            [0, 2 * K[1, 1] / h, (2 * K[1, 2] - h) / h, 0],
+            [0, 0, q, qn],
+            [0, 0, -1, 0],
+        ]
+    )
 
 
 def compute_crop_window_tf_batch(poses, K, crop_ratio, mesh_diameter, out_size):
@@ -234,6 +281,21 @@ def depth2xyzmap(depth, K, zfar=math.inf):
     vs = torch.arange(H, dtype=torch.float32, device=depth.device)[:, None]
     xs = (us - K[0, 2]) * depth / K[0, 0]
     ys = (vs - K[1, 2]) * depth / K[1, 1]
+    xyz = torch.stack([xs, ys, depth], dim=-1)
+    invalid = (depth < 0.001) | (depth > zfar)
+    return torch.where(invalid[..., None], torch.zeros_like(xyz), xyz)
+
+
+def depth2xyzmap_batch(depths, Ks, zfar=math.inf):
+    """(B,H,W) depths with (B,3,3) intrinsics -> (B,H,W,3): ``depth2xyzmap``
+    per frame, in one batched pass."""
+    depth = as_f32(depths)
+    K = as_f32(Ks, depth.device)[:, :, :, None, None].unbind(1)  # rows of (B,3,1,1)
+    H, W = depth.shape[-2:]
+    us = torch.arange(W, dtype=torch.float32, device=depth.device)[None, None, :]
+    vs = torch.arange(H, dtype=torch.float32, device=depth.device)[None, :, None]
+    xs = (us - K[0][:, 2]) * depth / K[0][:, 0]
+    ys = (vs - K[1][:, 2]) * depth / K[1][:, 1]
     xyz = torch.stack([xs, ys, depth], dim=-1)
     invalid = (depth < 0.001) | (depth > zfar)
     return torch.where(invalid[..., None], torch.zeros_like(xyz), xyz)

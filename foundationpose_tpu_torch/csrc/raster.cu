@@ -44,6 +44,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Parts of the kernel, for timing them one by one (apps/profile_raster.py
+// builds each with -DK1R_PART=n into a library of its own; nothing else loads
+// those). Each part adds to the one before it:
+//   1  read the tile's bin row, write every output as background;
+//   2  + the coverage and depth test over the binned faces, writing only
+//      depth (1 / the winner's interpolated 1/z);
+//   3  + the attribute pass (interpolation, texture, lighting), every tile
+//      written pixel by pixel;
+//   4  + the staged 16-byte stores: the kernel every path runs. With no
+//      switch given, the source is that kernel's, token for token.
+#ifndef K1R_PART
+#define K1R_PART 4
+#endif
+
 #define TILE 16
 #define NTHREADS (TILE * TILE)
 #define CHUNK NTHREADS
@@ -132,6 +146,7 @@ raster_kernel(const float4* __restrict__ rec, const uint32_t* __restrict__ bins,
             total += c;
         }
         any_faces = any_faces || total > 0;
+#if K1R_PART >= 2
         for (int r0 = 0; r0 < total; r0 += CHUNK) {
             // survivors r0 .. r0+CHUNK-1, in face order
             uint32_t left = bits;
@@ -172,9 +187,14 @@ raster_kernel(const float4* __restrict__ rec, const uint32_t* __restrict__ bins,
             }
             __syncthreads();
         }
+#endif
         __syncthreads();  // s_wsum is rewritten by the next round of words
     }
 
+#if K1R_PART == 2
+    if (px_i < W && py_i < H)
+        depth[((size_t)b * H + py_i) * W + px_i] = best > 0.0f ? 1.0f / best : 0.0f;
+#else
     // ---- this pixel's values
     const bool hit = best > 0.0f;
     float o_rgb[3] = {0.f, 0.f, 0.f}, o_xyz[3] = {0.f, 0.f, 0.f}, o_nrm[3] = {0.f, 0.f, 0.f};
@@ -257,7 +277,11 @@ raster_kernel(const float4* __restrict__ rec, const uint32_t* __restrict__ bins,
         for (int c = 0; c < 3; ++c) bary[p * 3 + c] = o_bary[c];
     }
     const int tx0 = px_i - (t & (TILE - 1)), ty0 = py_i - (t / TILE);
+#if K1R_PART == 3
+    if (tx0 >= 0) {  // every tile pixel by pixel
+#else
     if ((W & 3) != 0 || tx0 + TILE > W || ty0 + TILE > H) {
+#endif
         // ragged tile, or rows that are not 16-byte aligned: pixel by pixel
         if (px_i >= W || py_i >= H) return;
         const size_t p = ((size_t)b * H + py_i) * W + px_i;
@@ -308,6 +332,7 @@ raster_kernel(const float4* __restrict__ rec, const uint32_t* __restrict__ bins,
         if (tri != nullptr)
             *(int4*)(tri + o) = any_faces ? ((const int4*)(so + 2560))[t] : make_int4(-1, -1, -1, -1);
     }
+#endif
 }
 
 // Plain C interface for ctypes. Launches on the given stream, does not

@@ -55,6 +55,15 @@
 #define FULL 0xffffffffu
 #define BIN_TILES 128  // tiles whose bin words a block gathers before it writes them
 
+// Parts of the kernel, for timing them one by one (apps/profile_raster.py
+// builds -DK1S_PART=1 into a library of its own; nothing else loads it):
+//   1  the face setup alone: vertex table and face records, no bit table;
+//   2  + the tile binning: the kernel every path runs. With no switch given,
+//      the source is that kernel's, token for token.
+#ifndef K1S_PART
+#define K1S_PART 2
+#endif
+
 struct Cam {      // one pose's constants, in shared memory
     float R[9];   // rotation, row-major
     float t[3];
@@ -219,6 +228,7 @@ setup_kernel(const float* __restrict__ pos, const float* __restrict__ vnormals,
         }
     }
 
+#if K1S_PART >= 2
     // ---- tile bins of this warp's 32 faces
     // The face's own tile range, in integers, then the warp's bounding
     // rectangle of tiles (empty for a warp without a valid face, or beyond
@@ -259,6 +269,7 @@ setup_kernel(const float* __restrict__ pos, const float* __restrict__ vnormals,
         }
         __syncthreads();
     }
+#endif
 }
 
 // Plain C interface for ctypes. Launches on the given stream, does not

@@ -302,6 +302,17 @@ class FoundationPoseTorch:
         tf[:3, 3] = -self.model_center
         return tf
 
+    def guess_translation(self, depth, mask, K):
+        """The module's ``guess_translation`` on this engine's device, as
+        (3,) float64 numpy: mask bbox centre ray x median masked depth;
+        zeros for an empty mask or one without valid depth."""
+        dev = self.device
+        center, _ = guess_translation(
+            torch.as_tensor(np.asarray(depth, np.float32), device=dev),
+            torch.as_tensor(np.asarray(mask), device=dev),
+            torch.as_tensor(np.asarray(K, np.float32), device=dev))
+        return center.cpu().numpy().astype(np.float64)
+
     def _track_perturb(self):
         """Deterministic (K-1, 6) [dt camera-frame | axis-angle] perturbation
         fan for multi-hypothesis tracking: camera-plane translations and

@@ -174,7 +174,8 @@ def run_accuracy(out_path=None, quick=False, modes=("geometric", "learned"),
     quick=True: 2 scenes, 2 register poses, 6 track frames, quarter
     resolution, small grids — the CPU configuration of the tests.
     ``scene_names``: optional subset (full protocol; pooled numbers then cover
-    only the subset). ``agnostic_dir``: the object-agnostic checkpoint that
+    only the subset); a name the suite lacks raises ``ValueError``.
+    ``agnostic_dir``: the object-agnostic checkpoint that
     ``learned`` and ``learned_hybrid`` evaluate on every scene at its native
     resolution; "auto" = ``weights/agnostic`` of this checkout when present,
     None = the per-scene training fallback: a refiner and a scorer trained
@@ -185,8 +186,17 @@ def run_accuracy(out_path=None, quick=False, modes=("geometric", "learned"),
     device = resolve_device(device)
     if agnostic_dir == "auto":
         agnostic_dir = default_weights_dir() if os.path.isdir(default_weights_dir()) else None
+    if ({"learned", "learned_hybrid"} & set(modes)) and agnostic_dir \
+            and not os.path.isdir(agnostic_dir):
+        raise FileNotFoundError(f"agnostic checkpoint dir not found: {agnostic_dir}")
     suite = scenes_mod.build_suite(quick=quick)
     if scene_names:
+        # a name the suite lacks would leave the pooled AUCs NaN (as in the
+        # JAX package, which does not check): refuse it instead
+        unknown = sorted(set(scene_names) - {s.name for s in suite})
+        if unknown:
+            raise ValueError(f"unknown scene names {unknown}; this suite has "
+                             f"{[s.name for s in suite]}")
         suite = [s for s in suite if s.name in set(scene_names)]
     # quick mode renders at quarter resolution (geometry and protocol unchanged)
     K_s, hw_s = (scenes_mod.K_DEFAULT, scenes_mod.HW_DEFAULT)
@@ -260,8 +270,6 @@ def run_accuracy(out_path=None, quick=False, modes=("geometric", "learned"),
         from foundationpose_tpu_torch.engine.scorer import HybridScorer
         from foundationpose_tpu_torch.models import agnostic
 
-        if not os.path.isdir(agnostic_dir):
-            raise FileNotFoundError(f"agnostic checkpoint dir not found: {agnostic_dir}")
         refiner0, scorer0, meta = agnostic.load_agnostic(agnostic_dir, device=device)
         px = int(meta["input_size"])
 

@@ -563,7 +563,7 @@ class NeRFRunner:
     # ------------------------------------------------------------------
     def save(self, path):
         """``torch.save`` of the parameters, both optimisers' states, the
-        step, the config and the normalisation."""
+        step, the config, the normalisation and the occupancy grid."""
         torch.save({
             "params": {k: v.detach().cpu() for k, v in self.field.state_dict().items()},
             "opt_state": {"basic": self.opt.state_dict(),
@@ -572,6 +572,7 @@ class NeRFRunner:
             "cfg": dataclasses.asdict(self.cfg),
             "sc_factor": self.sc_factor,
             "translation": self.translation.tolist(),
+            "occ_grid": self.occ_grid.cpu(),
         }, path)
 
     def load(self, path):
@@ -582,3 +583,5 @@ class NeRFRunner:
         if self.opt_pose is not None:
             self.opt_pose.load_state_dict(data["opt_state"]["pose"])
         self.global_step = data["global_step"]
+        if "occ_grid" in data:  # checkpoints written before the grid was saved keep this one
+            self.occ_grid = data["occ_grid"].to(self.device)

@@ -248,10 +248,12 @@ def train_agnostic_refiner(prepped, K, steps=20000, batch=32, input_size=160, lr
 
 def train_agnostic_scorer(prepped, K, steps=15000, n_hyp=16, input_size=160, lr=5e-4,
                           seed=0, chunk=25, log_cb=None, resume_path=None, ckpt_every=2500,
-                          stop_after=None):
+                          stop_after=None, dtype=torch.float32):
     """ONE ScoreNetMultiPair (group norm, residual attention: the
     from-scratch architecture) over the whole corpus, same recipe as the
-    refiner. Returns (net, stats)."""
+    refiner. ``dtype=torch.bfloat16`` runs the net's compute in bf16, as the
+    JAX package's ``dtype=jnp.bfloat16``; its parameters, gradients and
+    optimiser stay float32. Returns (net, stats)."""
     from foundationpose_tpu_torch.models import datagen, training
     from foundationpose_tpu_torch.models.score_net import ScoreNetMultiPair
 
@@ -265,7 +267,8 @@ def train_agnostic_scorer(prepped, K, steps=15000, n_hyp=16, input_size=160, lr=
             return training.scorer_train_step(net, opt, data)
         return step
 
-    return _train_corpus(ScoreNetMultiPair(c_in=6, norm="group", residual_attn=True),
+    return _train_corpus(ScoreNetMultiPair(c_in=6, norm="group", residual_attn=True,
+                                           dtype=dtype),
                          make_step, prepped, steps, lr, seed, seed + 2, "scorer[agnostic]", chunk,
                          log_cb, resume_path, ckpt_every, stop_after)
 

@@ -1,11 +1,12 @@
-"""Engine checkpoints: both nets of a ``FoundationPoseTorch`` in one file.
+"""Engine and field checkpoints.
 
-Counterpart of foundationpose_tpu/models/checkpoint.py::save_engine /
-load_engine. The JAX package writes orbax PyTree directories; the port has
-no orbax, so it writes one ``torch.save`` of both nets' state dicts
-(``{"format": ..., "refiner": state_dict, "scorer": state_dict}``). The
-orbax directories of the JAX package are not read here: the object-agnostic
-npz checkpoint (``models/agnostic.py``) is the format both packages share.
+Counterpart of foundationpose_tpu/models/checkpoint.py. The JAX package
+writes orbax PyTree directories; the port has no orbax, so ``save_engine``
+writes one ``torch.save`` of both nets' state dicts (``{"format": ...,
+"refiner": state_dict, "scorer": state_dict}``), and ``save_field`` the
+field runner's whole training state through ``NeRFRunner.save``. The orbax
+directories of the JAX package are not read here: the object-agnostic npz
+checkpoint (``models/agnostic.py``) is the format both packages share.
 """
 
 from __future__ import annotations
@@ -65,3 +66,19 @@ def _net(part):
     if hasattr(part, "learned"):
         return part.learned.net
     raise TypeError(f"{type(part).__name__} has no net to checkpoint (geometric mode)")
+
+
+def save_field(runner, path):
+    """Save a ``NeRFRunner``'s whole training state (parameters, both
+    optimisers, step, normalisation, occupancy grid), resumable."""
+    path = os.path.abspath(path)
+    runner.save(path)
+    logging.info("field checkpoint saved to %s", path)
+
+
+def load_field(runner, path):
+    """Restore a ``save_field`` file into ``runner`` (built on the same data:
+    its normalisation is its own, as in the JAX package)."""
+    path = os.path.abspath(path)
+    runner.load(path)
+    logging.info("field checkpoint loaded from %s", path)

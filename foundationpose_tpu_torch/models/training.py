@@ -1,7 +1,8 @@
 """Training steps and the optimiser for the pose networks.
 
 Counterpart of foundationpose_tpu/models/training.py (``refiner_loss``,
-``scorer_loss``, the three train steps) and of the optax recipes the JAX
+``scorer_loss``, the three train steps, ``make_refiner_train_state``) and
+of the optax recipes the JAX
 package trains with. The steps are plain functions over ``(net, optimiser,
 batch)``: forward in float32, autograd backward, one optimiser update.
 
@@ -174,6 +175,21 @@ class Optimizer:
             setattr(self, key, state[key].to(dev))
         self.mu = [m.to(dev) for m in state["mu"]]
         self.nu = [v.to(dev) for v in state["nu"]]
+
+
+def make_refiner_train_state(net, seed, input_size=160, c_in=6, lr=1e-4):
+    """``net`` with flax-style initial parameters drawn from ``seed``
+    (``convert.flax_init``) and an ``Optimizer`` that is ``optax.adam(lr)``.
+    One forward on zeros of (1, input_size, input_size, c_in) checks that the
+    net takes such crops, as the JAX package's ``net.init`` traces them.
+    Returns (net, optimiser)."""
+    from foundationpose_tpu_torch.models import convert
+
+    convert.flax_init(net, seed)
+    z = torch.zeros((1, input_size, input_size, c_in), device=next(net.parameters()).device)
+    with torch.no_grad():
+        net(z, z)
+    return net, Optimizer(net.parameters(), lr)
 
 
 # ---------------------------------------------------------------------------

@@ -190,6 +190,26 @@ def score_state_dict(state_dict, net, use_bn=False):
     return flax_params_to_state_dict(flatten_params(tree), net)
 
 
+def load_refiner_weights(path, use_bn=False, net=None):
+    """A reference RefineNet ``.pth`` -> state_dict of the port's ``RefineNet``
+    (``net``; a default-width one, c_in 6, norm-free, when None). BatchNorm
+    layers are folded into their convolutions with ``use_bn``."""
+    from foundationpose_tpu_torch.models.refine_net import RefineNet
+
+    return refine_state_dict(load_torch_checkpoint(path), net or RefineNet(c_in=6),
+                             use_bn=use_bn)
+
+
+def load_scorer_weights(path, use_bn=False, net=None):
+    """A reference ScoreNetMultiPair ``.pth`` -> state_dict of the port's
+    ``ScoreNetMultiPair`` (``net``; a default-width one, c_in 6, norm-free,
+    when None)."""
+    from foundationpose_tpu_torch.models.score_net import ScoreNetMultiPair
+
+    return score_state_dict(load_torch_checkpoint(path), net or ScoreNetMultiPair(c_in=6),
+                            use_bn=use_bn)
+
+
 # ---------------------------------------------------------------------------
 # flax's msgpack serialisation (``flax.serialization.to_bytes``), read in
 # plain Python: maps, arrays, strings, binaries, numbers and the ndarray

@@ -30,7 +30,9 @@ and there is no face cap beyond memory.
 Dispatch rule: CUDA tensors go to the kernels (a build, load or launch
 failure raises); CPU tensors go to the plain version in ``ops/raster.py``.
 There is no fallback from one to the other. ``LAUNCHES`` counts kernel
-launches, per kernel, and nothing else.
+launches, per kernel, and nothing else; ``launched_libraries()`` names the
+library files whose code those launches called, as the dynamic loader
+resolves the launch functions' addresses.
 """
 
 from __future__ import annotations
@@ -39,7 +41,6 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import time
 
 import numpy as np
 import torch
@@ -47,7 +48,6 @@ import torch
 from foundationpose_tpu_torch.ops import raster as plain
 
 LAUNCHES = {"K1s": 0, "K1r": 0}  # one more per launch of that kernel
-BUILD_SECONDS = None  # wall time of the nvcc builds done by this process, if any
 BUILD_LOG = {}        # kernel -> compiler output (ptxas register / shared memory report)
 BBOX_PAD = 0.5        # pixels; covers the -1e-6 edge epsilon and f32 rounding
 TILE = 16             # pixels; a block of K1r owns one TILE x TILE tile
@@ -65,6 +65,7 @@ SOURCES = {
     "K1r": (os.path.join(_PKG_DIR, "csrc", "raster.cu"), []),
 }
 _libs = None
+_LAUNCHED_FNS = {"K1s": {}, "K1r": {}}  # kernel -> {id: launch function called}
 
 
 def _find_nvcc():
@@ -77,49 +78,78 @@ def _find_nvcc():
     return "nvcc"  # let the PATH decide; a missing compiler raises below
 
 
-def build():
-    """Compile both sources into ``_build/`` (each keyed by a hash of its
-    source and flags), the compilers running side by side, and load them.
-    Raises on any failure."""
-    global _libs, BUILD_SECONDS
-    if _libs is not None:
-        return _libs
-    t0 = time.perf_counter()
-    jobs = {}
-    for name, (src, extra) in SOURCES.items():
-        flags = _NVCC_FLAGS + extra
-        with open(src, "rb") as f:
-            key = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
-        so_path = os.path.join(_BUILD_DIR, f"libfp_{name.lower()}_{key}.so")
-        proc = tmp = None
-        if not os.path.exists(so_path):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{so_path}.{os.getpid()}.tmp"
-            proc = subprocess.Popen(
-                [_find_nvcc(), *flags, "-o", tmp, src],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            )
-        jobs[name] = (src, so_path, tmp, proc)
+def library_path(name, src, flags):
+    """Where ``_build/`` keeps the library of ``src`` built with ``flags``:
+    named after a hash of the source and the flags."""
+    with open(src, "rb") as f:
+        key = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
+    return os.path.join(_BUILD_DIR, f"libfp_{name.lower()}_{key}.so")
+
+
+def _start_build(name, src, flags):
+    """Start nvcc on ``src`` unless ``_build/`` already holds the library.
+    Returns (library path, temporary path, process or None)."""
+    so_path = library_path(name, src, flags)
+    if os.path.exists(so_path):
+        return so_path, None, None
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{so_path}.{os.getpid()}.tmp"
+    proc = subprocess.Popen([_find_nvcc(), *flags, "-o", tmp, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return so_path, tmp, proc
+
+
+def compile_libraries(specs, log):
+    """Build ``specs`` ({name: (source, nvcc flags)}), the compilers running
+    side by side; each one's output goes to ``log[name]``. Returns {name:
+    library path}. Raises naming every source that failed."""
+    jobs = {name: _start_build(name, src, flags) for name, (src, flags) in specs.items()}
     failed = []
-    for name, (src, so_path, tmp, proc) in jobs.items():
+    for name, (so_path, tmp, proc) in jobs.items():
         if proc is None:
             continue
-        BUILD_LOG[name] = proc.communicate()[0]
+        log[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {src}:\n{BUILD_LOG[name]}")
+            failed.append(f"nvcc failed for {specs[name][0]}:\n{log[name]}")
         else:
             os.replace(tmp, so_path)
     if failed:
         raise RuntimeError("\n".join(failed))
-    if any(job[3] is not None for job in jobs.values()):
-        BUILD_SECONDS = time.perf_counter() - t0
+    return {name: job[0] for name, job in jobs.items()}
+
+
+def bind_setup(path):
+    """The typed launch function of a built K1s library."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    setup = ctypes.CDLL(jobs["K1s"][1]).fp_raster_setup_launch
-    setup.argtypes = [vp] * 6 + [ci] * 6 + [cf] * 3 + [vp] * 4
-    raster = ctypes.CDLL(jobs["K1r"][1]).fp_raster_launch
-    raster.argtypes = [vp] * 6 + [ci] * 9 + [cf] * 2 + [vp] * 8
-    setup.restype = raster.restype = ci
-    _libs = {"K1s": setup, "K1r": raster}
+    fn = ctypes.CDLL(path).fp_raster_setup_launch
+    fn.argtypes = [vp] * 6 + [ci] * 6 + [cf] * 3 + [vp] * 4
+    fn.restype = ci
+    return fn
+
+
+def bind_raster(path):
+    """The typed launch function of a built K1r library."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = ctypes.CDLL(path).fp_raster_launch
+    fn.argtypes = [vp] * 6 + [ci] * 9 + [cf] * 2 + [vp] * 8
+    fn.restype = ci
+    return fn
+
+
+def default_specs():
+    """{kernel: (source, nvcc flags)} of the kernels every render call
+    launches: no part switch defined."""
+    return {name: (src, _NVCC_FLAGS + extra) for name, (src, extra) in SOURCES.items()}
+
+
+def build():
+    """Compile both sources into ``_build/``, the compilers running side by
+    side, and load them. Raises on any failure."""
+    global _libs
+    if _libs is not None:
+        return _libs
+    paths = compile_libraries(default_specs(), BUILD_LOG)
+    _libs = {"K1s": bind_setup(paths["K1s"]), "K1r": bind_raster(paths["K1r"])}
     return _libs
 
 
@@ -207,13 +237,37 @@ def _launch(name, dev, *args):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    _LAUNCHED_FNS[name][id(fn)] = fn  # ctypes functions do not hash
 
 
-def setup_cuda(mesh_tensors, poses, K, crop_tfs, out_hw, light_dir=(0.0, 0.0, 1.0),
-               backface_cull=False):
-    """Launch K1s. Returns the scratch the rasterizer reads: ``vtab``
-    (B,V,8), ``rec`` (B,F,16; an invalid face holds only its empty bounding
-    box) and ``bins`` (B,tiles,ceil(F/32)) int32."""
+class _DlInfo(ctypes.Structure):
+    _fields_ = [("dli_fname", ctypes.c_char_p), ("dli_fbase", ctypes.c_void_p),
+                ("dli_sname", ctypes.c_char_p), ("dli_saddr", ctypes.c_void_p)]
+
+
+def library_file(fn):
+    """The file of the shared library that holds the code of the ctypes
+    function ``fn``, as the dynamic loader resolves its address
+    (``dladdr``), with links resolved."""
+    dladdr = ctypes.CDLL(None).dladdr
+    dladdr.argtypes = [ctypes.c_void_p, ctypes.POINTER(_DlInfo)]
+    info = _DlInfo()
+    if not dladdr(ctypes.cast(fn, ctypes.c_void_p), ctypes.byref(info)) or not info.dli_fname:
+        raise RuntimeError(f"the dynamic loader places {fn} in no library")
+    return os.path.realpath(info.dli_fname.decode())
+
+
+def launched_libraries():
+    """{kernel: set of library files} that this process's kernel launches
+    called into, since it started."""
+    return {name: {library_file(fn) for fn in fns.values()}
+            for name, fns in _LAUNCHED_FNS.items()}
+
+
+def setup_launch_args(mesh_tensors, poses, K, crop_tfs, out_hw, light_dir=(0.0, 0.0, 1.0),
+                      backface_cull=False):
+    """Checked arguments of one K1s launch. Returns (device, the launch
+    function's arguments before the stream, the scratch it fills)."""
     H, W = out_hw
     B = poses.shape[0]
     V, F = mesh_tensors["pos"].shape[0], mesh_tensors["faces"].shape[0]
@@ -234,19 +288,29 @@ def setup_cuda(mesh_tensors, poses, K, crop_tfs, out_hw, light_dir=(0.0, 0.0, 1.
     vtab = torch.empty((B, V, 8), dtype=torch.float32, device=dev)
     rec = torch.empty((B, F, 16), dtype=torch.float32, device=dev)
     bins = torch.empty((B, tiles, (F + 31) // 32), dtype=torch.int32, device=dev)
-    _launch(
-        "K1s", dev, pos.data_ptr(), vnormals.data_ptr(), faces.data_ptr(),
-        poses.data_ptr(), K.data_ptr(), crop_tfs.data_ptr(), B, V, F, H, W,
-        int(bool(backface_cull)), float(light[0]), float(light[1]), float(light[2]),
-        vtab.data_ptr(), rec.data_ptr(), bins.data_ptr(),
-    )
-    return {"vtab": vtab, "rec": rec, "bins": bins}
+    args = (pos.data_ptr(), vnormals.data_ptr(), faces.data_ptr(),
+            poses.data_ptr(), K.data_ptr(), crop_tfs.data_ptr(), B, V, F, H, W,
+            int(bool(backface_cull)), float(light[0]), float(light[1]), float(light[2]),
+            vtab.data_ptr(), rec.data_ptr(), bins.data_ptr())
+    return dev, args, {"vtab": vtab, "rec": rec, "bins": bins}
 
 
-def rasterize_cuda(mesh_tensors, scratch, out_hw, use_light, w_ambient, w_diffuse,
-                   with_normal, with_tri=False, with_bary=False):
-    """Launch K1r on the scratch of :func:`setup_cuda`. Returns the output
-    dict of ``render_crops`` (plus ``tri`` int32 and ``bary`` when asked)."""
+def setup_cuda(mesh_tensors, poses, K, crop_tfs, out_hw, light_dir=(0.0, 0.0, 1.0),
+               backface_cull=False):
+    """Launch K1s. Returns the scratch the rasterizer reads: ``vtab``
+    (B,V,8), ``rec`` (B,F,16; an invalid face holds only its empty bounding
+    box) and ``bins`` (B,tiles,ceil(F/32)) int32."""
+    dev, args, scratch = setup_launch_args(mesh_tensors, poses, K, crop_tfs, out_hw,
+                                           light_dir, backface_cull)
+    _launch("K1s", dev, *args)
+    return scratch
+
+
+def raster_launch_args(mesh_tensors, scratch, out_hw, use_light, w_ambient, w_diffuse,
+                       with_normal, with_tri=False, with_bary=False):
+    """Checked arguments of one K1r launch on the scratch of
+    :func:`setup_cuda`. Returns (device, the launch function's arguments
+    before the stream, the output dict it fills)."""
     H, W = out_hw
     B, V = scratch["vtab"].shape[:2]
     F = mesh_tensors["faces"].shape[0]
@@ -279,17 +343,25 @@ def rasterize_cuda(mesh_tensors, scratch, out_hw, use_light, w_ambient, w_diffus
         out["tri"] = torch.empty((B, H, W), dtype=torch.int32, device=dev)
     if with_bary:
         out["bary"] = torch.empty((B, H, W, 3), **f32)
-    _launch(
-        "K1r", dev, scratch["rec"].data_ptr(), scratch["bins"].data_ptr(),
-        scratch["vtab"].data_ptr(), faces.data_ptr(), vcol.data_ptr(),
-        tex.data_ptr() if tex is not None else None,
-        B, F, V, H, W, Ht, Wt, int(bool(use_light)), int(bool(with_normal)),
-        float(w_ambient), float(w_diffuse),
-        out["rgb"].data_ptr(), out["xyz"].data_ptr(), out["depth"].data_ptr(),
-        out["mask"].data_ptr(), out["normal"].data_ptr() if with_normal else None,
-        out["tri"].data_ptr() if with_tri else None,
-        out["bary"].data_ptr() if with_bary else None,
-    )
+    args = (scratch["rec"].data_ptr(), scratch["bins"].data_ptr(),
+            scratch["vtab"].data_ptr(), faces.data_ptr(), vcol.data_ptr(),
+            tex.data_ptr() if tex is not None else None,
+            B, F, V, H, W, Ht, Wt, int(bool(use_light)), int(bool(with_normal)),
+            float(w_ambient), float(w_diffuse),
+            out["rgb"].data_ptr(), out["xyz"].data_ptr(), out["depth"].data_ptr(),
+            out["mask"].data_ptr(), out["normal"].data_ptr() if with_normal else None,
+            out["tri"].data_ptr() if with_tri else None,
+            out["bary"].data_ptr() if with_bary else None)
+    return dev, args, out
+
+
+def rasterize_cuda(mesh_tensors, scratch, out_hw, use_light, w_ambient, w_diffuse,
+                   with_normal, with_tri=False, with_bary=False):
+    """Launch K1r on the scratch of :func:`setup_cuda`. Returns the output
+    dict of ``render_crops`` (plus ``tri`` int32 and ``bary`` when asked)."""
+    dev, args, out = raster_launch_args(mesh_tensors, scratch, out_hw, use_light, w_ambient,
+                                        w_diffuse, with_normal, with_tri, with_bary)
+    _launch("K1r", dev, *args)
     return out
 
 

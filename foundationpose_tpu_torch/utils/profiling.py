@@ -3,7 +3,8 @@
 Counterpart of foundationpose_tpu/utils/profiling.py: ``StageTimer``, an
 accumulating wall-clock timer with a running report, and ``trace``, a
 ``torch.profiler`` capture written as a Chrome trace (open it in Perfetto or
-``chrome://tracing``). On a CUDA device a stage synchronises the card when it
+``chrome://tracing``); and the card-side helpers the kernel timings share:
+``nvidia_smi_line``, ``event_ms``, ``device_ms``. On a CUDA device a stage synchronises the card when it
 begins and when it ends, so its figure is the device work queued inside it
 plus the Python cost of queueing it; the JAX package waits for its
 dispatches at the stage's end in the same way.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
+import subprocess
 import tempfile
 import time
 from collections import defaultdict
@@ -21,6 +23,8 @@ from collections import defaultdict
 import torch
 
 from foundationpose_tpu_torch import resolve_device
+
+_PROFILER_SESSIONS = 3  # profiler sessions device_ms takes at most
 
 
 class StageTimer:
@@ -107,3 +111,54 @@ def trace(log_dir=None, device=None):
             torch.cuda.synchronize(dev)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
     logging.info("profiler trace written to %s", log_dir)
+
+
+def nvidia_smi_line():
+    """The card's name and power limit, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
+    them (the first card). Raises when nvidia-smi fails."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def event_ms(fn, reps):
+    """Mean ms per call of ``fn`` over ``reps`` calls after one warm call,
+    from CUDA events round the whole run."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, reps, kernel_names):
+    """Device time per launch of the named kernels over ``reps`` calls of
+    ``fn``, from the profiler's kernel records (no host time in it). A
+    session that recorded none of a kernel's launches is taken again, up to
+    ``_PROFILER_SESSIONS`` sessions in all (in a long process on the H100
+    every other session came back empty); None for a kernel no session saw."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out = dict.fromkeys(kernel_names)
+    for _ in range(_PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            for name in kernel_names:
+                if name in e.key and e.count:
+                    out[name] = e.self_device_time_total / e.count / 1e3
+        if all(v is not None for v in out.values()):
+            break
+    return out

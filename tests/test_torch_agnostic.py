@@ -10,6 +10,11 @@ training fallback.
 - A ``train_agnostic_refiner`` run cut after two chunks and resumed from its
   snapshot ends bit for bit where the uncut run ends (parameters, Adam
   moments, step count, the losses after the cut), on the CPU.
+- ``train_agnostic_scorer(dtype=torch.bfloat16)`` runs ScoreNet's compute
+  in bf16 and stays within bf16's own spread of the JAX package's bf16 run
+  on the same draws (float32 parameters); its net's every layer puts out the
+  dtype the JAX bf16 module's does, and its first block lies nearer JAX's
+  bf16 activations than float32 does by more than ten times.
 - ``prepare_corpus`` keeps the JAX package's meshes, diameters and surface
   samples (bit for bit) and its two appearance groups; the chunk schedule is
   the JAX package's deterministic interleave.
@@ -26,6 +31,7 @@ import dataclasses
 import json
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -122,6 +128,166 @@ def test_cut_and_resumed_refiner_run_equals_the_uncut_one(corpus8, tmp_path):
     assert stats_r["chunk_means"] == stats_u["chunk_means"][2:]
     for (k, a), b in zip(net_u.state_dict().items(), net_r.state_dict().values()):
         assert torch.equal(a, b), k
+
+
+BF16_STEPS, BF16_LR, BF16_HYP = 20, 2e-6, 4
+
+
+def _score_batches(n):
+    rng = np.random.default_rng(21)
+    return [{"A": rng.uniform(-1, 1, (BF16_HYP, S, S, 6)).astype(np.float32),
+             "B": rng.uniform(-1, 1, (BF16_HYP, S, S, 6)).astype(np.float32),
+             "adds": rng.uniform(0.001, 0.05, (BF16_HYP,)).astype(np.float32)}
+            for _ in range(n)]
+
+
+def _port_scorer_run(monkeypatch, prepped, batches, dtype, chunk=5):
+    """``train_agnostic_scorer`` fed ``batches`` in order for its draws;
+    returns (net, per-step losses)."""
+    from foundationpose_tpu_torch.models import datagen, training
+
+    it, losses = iter(batches), []
+    step = training.scorer_train_step
+    monkeypatch.setattr(datagen, "make_score_batch",
+                        lambda *a, **k: {key: torch.tensor(v) for key, v in next(it).items()})
+    monkeypatch.setattr(training, "scorer_train_step",
+                        lambda *a, **k: losses.append(step(*a, **k)) or losses[-1])
+    net, stats = agnostic.train_agnostic_scorer(prepped, K, steps=len(batches),
+                                                n_hyp=BF16_HYP, input_size=S, lr=BF16_LR,
+                                                seed=0, chunk=chunk, dtype=dtype)
+    assert stats["steps"] == len(batches)
+    return net, np.array([float(x) for x in losses])
+
+
+def _update_rel(net, ref_sd, init):
+    """|| (net - init) - (ref - init) || / || ref - init || over every parameter."""
+    num = den = 0.0
+    for k, v in net.state_dict().items():
+        d, r = v.float() - init[k], ref_sd[k].float() - init[k]
+        num += float(((d - r) ** 2).sum())
+        den += float((r ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def test_bf16_scorer_run_matches_jax_bf16_on_the_same_draws(monkeypatch, tmp_path):
+    """``train_agnostic_scorer(dtype=torch.bfloat16)`` against the JAX
+    package's ``dtype=jnp.bfloat16`` recipe (warmup-cosine, clip 1, adam,
+    apply_if_finite) from the same initial parameters on the same 20 batches
+    (a small lr keeps the random-data run out of its chaotic regime). bf16
+    rounds otherwise in XLA's CPU convolutions and in oneDNN's, as much as
+    bf16 differs from float32 in either package (both ~1 % per loss, 0.11-0.13
+    of the parameter update's norm on this case). Gate: every step's loss
+    within 5 % relative, the parameter update within 0.2 of its norm; the
+    parameters stay float32, and the bf16 run is not the float32 one."""
+    import optax
+
+    from foundationpose_tpu.models import training as jtraining
+
+    prepped = agnostic.prepare_corpus(2, seed=7, max_faces=256, n_pts=64, device="cpu")
+    batches = _score_batches(BF16_STEPS)
+    net_b, loss_b = _port_scorer_run(monkeypatch, prepped, batches, torch.bfloat16)
+    net_f, _ = _port_scorer_run(monkeypatch, prepped, batches, torch.float32)
+    assert all(p.dtype == torch.float32 for p in net_b.parameters())
+
+    init = convert.flax_init(ScoreNetMultiPair(c_in=6, norm="group", residual_attn=True), 0)
+    path = str(tmp_path / "init.npz")
+    agnostic.save_params_npz(path, init, dtype=None)
+    jnet = JScoreNet(c_in=6, dtype=jnp.bfloat16, norm="group", residual_attn=True)
+    z = jnp.zeros((2, S, S, 6))
+    params = jagnostic.load_params_npz(path, jnet.init(jax.random.PRNGKey(0), z, z, 2))
+    sched = optax.warmup_cosine_decay_schedule(
+        0.0, BF16_LR, min(500, max(BF16_STEPS // 20, 1)), BF16_STEPS, BF16_LR * 0.02)
+    tx = optax.apply_if_finite(optax.chain(optax.clip_by_global_norm(1.0), optax.adam(sched)),
+                               max_consecutive_errors=200)
+    state, jloss = tx.init(params), []
+    for b in batches:
+        params, state, loss = jtraining.scorer_train_step(jnet, tx, params, state, b)
+        jloss.append(float(loss))
+    np.testing.assert_allclose(loss_b, jloss, rtol=5e-2)
+    flat = {"/".join(str(getattr(k, "key", k)) for k in kp): np.asarray(v)
+            for kp, v in jax.tree_util.tree_flatten_with_path(params)[0]}
+    jsd = convert.flax_params_to_state_dict(flat, net_b)
+    i0 = {k: v.float() for k, v in init.state_dict().items()}
+    assert _update_rel(net_b, jsd, i0) < 0.2
+    assert _update_rel(net_b, net_f.state_dict(), i0) > 0.02
+
+
+def _port_activations(net, A, B, L):
+    """{module name: output} of every sub-module of ``net`` in one forward."""
+    out, hooks = {}, []
+    for name, mod in net.named_modules():
+        if name:
+            hooks.append(mod.register_forward_hook(
+                lambda m, i, o, name=name: out.__setitem__(name, o)))
+    with torch.no_grad():
+        net(torch.tensor(A), torch.tensor(B), L)
+    for h in hooks:
+        h.remove()
+    return out
+
+
+def _jax_activations(path, dtype, A, B, L):
+    """{module path joined by '.': output} of every sub-module of the JAX
+    scorer built with ``dtype`` on the parameters saved at ``path``, run
+    op by op (a jit program's fusions round fewer times)."""
+    jnet = JScoreNet(c_in=6, dtype=dtype, norm="group", residual_attn=True)
+    z = jnp.zeros((2, S, S, 6))
+    params = jagnostic.load_params_npz(path, jnet.init(jax.random.PRNGKey(0), z, z, 2))
+    _, state = jnet.apply(params, A, B, L, capture_intermediates=True)
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if k == "__call__":
+                if prefix:  # the root's output is the net's result dict
+                    out[".".join(prefix)] = v[0]
+            else:
+                walk(v, prefix + [k])
+
+    walk(state["intermediates"], [])
+    return out
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def test_bf16_scorer_rounds_where_the_jax_bf16_scorer_does(monkeypatch, tmp_path):
+    """The net ``train_agnostic_scorer(dtype=torch.bfloat16)`` returns,
+    against the JAX scorer built with ``dtype=jnp.bfloat16`` on the same
+    parameters, one forward on the same crops, layer by layer (the flax
+    module paths are the port's module names). Every layer's output has the
+    JAX layer's dtype (bf16 everywhere, the logits float32), so no layer is
+    cast where JAX does not cast. In the first block (``encoderA.conv0``:
+    conv, group norm, activation), before the two packages' rounding drifts
+    apart, the port lies within 4e-4 of JAX's bf16 activations, and JAX's
+    own float32 run more than six times that away: the gate was set from
+    the port's reading there, 1.2e-4-1.6e-4, and float32's, 2.7e-3-3.2e-3.
+    A float32 run, or norm statistics taken in bf16, fails there. Deeper layers are not gated:
+    XLA's fusions round fewer times than eager kernels, and the packages
+    part within bf16's own spread."""
+    prepped = agnostic.prepare_corpus(2, seed=7, max_faces=256, n_pts=64, device="cpu")
+    batches = _score_batches(3)
+    net, _ = _port_scorer_run(monkeypatch, prepped, batches[:2], torch.bfloat16, chunk=2)
+    path = str(tmp_path / "trained.npz")
+    agnostic.save_params_npz(path, net, dtype=None)
+    A, B = batches[2]["A"], batches[2]["B"]
+    port = _port_activations(net, A, B, BF16_HYP)
+    jb = _jax_activations(path, jnp.bfloat16, A, B, BF16_HYP)
+    jf = _jax_activations(path, jnp.float32, A, B, BF16_HYP)
+    tensors = {k: v for k, v in port.items() if isinstance(v, torch.Tensor)}
+    assert set(tensors) == set(jb), set(tensors) ^ set(jb)
+    for name, v in tensors.items():
+        assert str(v.dtype).split(".")[-1] == str(jb[name].dtype), name
+    assert port["linear"].dtype == torch.bfloat16
+    first = [k for k in tensors if k.startswith("encoderA.conv0")]
+    assert len(first) == 3, first
+    for name in first:
+        p = tensors[name].float().permute(0, 2, 3, 1).numpy()  # NCHW -> NHWC
+        f = np.asarray(jf[name], np.float32)
+        gap = _rel(np.asarray(jb[name], np.float32), f)
+        assert _rel(p, np.asarray(jb[name], np.float32)) < 4e-4 < gap / 6, (name, gap)
 
 
 def test_train_agnostic_cli_writes_a_checkpoint_both_packages_read(tmp_path):

@@ -327,3 +327,66 @@ def test_readers_harness_and_clis_write_json_only_when_asked(tmp_path, small_eng
         os.chdir(cwd)
     with open(tmp_path / "r.json") as f:
         assert json.load(f)["n_frames"] == 1
+
+
+def test_demo_synthetic_out_dir_writes_the_jax_demos_artefacts(tmp_path, monkeypatch):
+    """``demo_synthetic --cpu --out-dir`` (a 120x160 scene, 1 tracked frame,
+    geometric mode on a 4-view grid) writes the seven files of the JAX
+    package's demo: the PNGs decode to the rendered frame and mask bit for
+    bit, ``depth.npy`` / ``cam_K.txt`` are what ``register`` was given,
+    ``gt_pose.txt`` the scene's true pose, ``object.obj`` the file the JAX
+    package's ``save_obj`` writes for the same mesh, byte for byte."""
+    from foundationpose_tpu.core import meshio as jmeshio
+    from foundationpose_tpu_torch.apps import demo_synthetic as demo
+
+    seen = {}
+    make_scene, build = demo.make_scene, demo.build_estimator
+
+    def scene_spy(*a, **k):
+        seen["scene"] = make_scene(*a, **k)
+        return seen["scene"]
+
+    def small_estimator(mesh, device=None, mode="learned", **kw):
+        est = build(mesh, device=device, mode=mode, input_size=32,
+                    config=est_mod.EstimatorConfig(min_n_views=4, inplane_step=180,
+                                                   register_iterations=2,
+                                                   final_refine_iterations=1))
+        register = est.register
+
+        def register_spy(*a, **k):
+            seen["register"] = a
+            return register(*a, **k)
+
+        est.register = register_spy
+        return est
+
+    monkeypatch.setattr(demo, "make_scene", scene_spy)
+    monkeypatch.setattr(demo, "build_estimator", small_estimator)
+    out = tmp_path / "demo"
+    err = demo.main(["--cpu", "--out-dir", str(out), "--frames", "1", "--height", "120",
+                     "--width", "160", "--mode", "geometric"])
+    assert np.isfinite(err)
+    assert sorted(os.listdir(out)) == sorted(demo.ARTEFACTS)
+    sc, (K_reg, rgb_reg, depth_reg, mask_reg) = seen["scene"], seen["register"]
+    np.testing.assert_array_equal(png.read_png(str(out / "rgb.png")), sc["rgb"])
+    np.testing.assert_array_equal(png.read_png(str(out / "rgb.png")), rgb_reg)
+    np.testing.assert_array_equal(png.read_png(str(out / "mask.png")),
+                                  mask_reg.astype(np.uint8) * 255)
+    depth = np.load(out / "depth.npy")
+    assert depth.dtype == np.float32 and depth.shape == (120, 160)
+    np.testing.assert_array_equal(depth, depth_reg)
+    np.testing.assert_array_equal(np.loadtxt(out / "cam_K.txt"), K_reg)
+    np.testing.assert_array_equal(np.loadtxt(out / "gt_pose.txt"), sc["gt"])
+    m = sc["mesh"]
+    jmeshio.save_obj(str(tmp_path / "jax.obj"),
+                     jmeshio.Mesh(m.vertices, m.faces, vertex_colors=m.vertex_colors))
+    assert (out / "object.obj").read_bytes() == (tmp_path / "jax.obj").read_bytes()
+    vis_img = png.read_png(str(out / "vis_register.png"))
+    assert vis_img.shape == sc["rgb"].shape and (vis_img != sc["rgb"]).any()
+
+
+def test_demo_synthetic_cpu_flag_is_device_cpu():
+    from foundationpose_tpu_torch.apps import demo_synthetic as demo
+
+    with pytest.raises(SystemExit):
+        demo.main(["--cpu", "--device", "cuda"])

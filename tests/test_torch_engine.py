@@ -262,6 +262,27 @@ def test_guess_translation_exact_median():
     assert n == 0 and (c == 0).all()
 
 
+@pytest.mark.parametrize("case", ["masked scene", "all-zero mask", "no valid depth"])
+def test_guess_translation_method_matches_jax(world, case):
+    """``FoundationPoseTorch.guess_translation`` against the JAX engine's
+    method (numpy, float64): 1e-6 relative + 1e-7 (the port inverts K in
+    float32); zeros where the JAX method returns zeros."""
+    s = world["scene"]
+    depth, mask = s["depth"].copy(), s["mask"].copy()
+    if case == "all-zero mask":
+        mask[:] = False
+    elif case == "no valid depth":
+        depth[mask] = 0.0
+    got = world["est"].guess_translation(depth, mask, s["K"])
+    want = world["jest"].guess_translation(depth, mask.astype(np.uint8), s["K"])
+    assert got.shape == (3,) and got.dtype == np.float64
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    if case != "masked scene":
+        assert (got == 0).all()
+    else:
+        assert got[2] > 0.3
+
+
 def test_register_translation_only_fallback(world):
     est, s = world["est"], world["scene"]
     tiny = np.zeros_like(s["mask"])

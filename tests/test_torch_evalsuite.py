@@ -171,3 +171,15 @@ def test_quick_harness_matches_jax():
             d = np.abs(np.asarray(sc["adds"]) - want["scenes"][name]["adds"])
             assert (d <= 0.01 * diam[name]).all(), (sched, name, d)
         assert abs(got["overall_auc_adds"] - want["overall_auc_adds"]) <= 0.05
+
+
+def test_unknown_scene_names_raise_unlike_jax():
+    """A misspelt ``scene_names`` entry: the port raises a ``ValueError``
+    naming it; the JAX package (left as it is) filters the suite to nothing
+    and pools NaN AUCs. The divergence is on this error path only."""
+    with pytest.raises(ValueError, match="box_grey"):
+        harness.run_accuracy(quick=True, modes=("geometric",), scene_names=["box_grey"],
+                             device="cpu")
+    ref = jharness.run_accuracy(quick=True, modes=("geometric",), scene_names=["box_grey"])
+    assert ref["meta"]["n_scenes"] == 0
+    assert np.isnan(ref["modes"]["geometric"]["register"]["full"]["overall_auc_adds"])

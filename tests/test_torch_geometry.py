@@ -108,6 +108,55 @@ def test_depth2xyzmap():
     )
 
 
+@pytest.mark.parametrize("zfar", [np.inf, 0.8])
+def test_depth2xyzmap_batch(zfar):
+    """Per-frame intrinsics, each frame as ``depth2xyzmap``; 1e-6."""
+    rng = np.random.default_rng(11)
+    Ks = np.stack([np.array([[f, 0, 80 + d], [0, f * 1.01, 60 - d], [0, 0, 1]])
+                   for f, d in ((420.0, 0.0), (300.0, 3.5), (610.0, -7.25))])
+    depth = rng.uniform(0.3, 1.2, (3, 60, 80)).astype(np.float32)
+    depth[rng.uniform(size=depth.shape) < 0.1] = 0.0
+    out = _np(geo.depth2xyzmap_batch(depth, Ks, zfar=zfar))
+    assert out.shape == (3, 60, 80, 3)
+    np.testing.assert_allclose(out, np.asarray(jgeo.depth2xyzmap_batch(depth, Ks, zfar=zfar)),
+                               atol=1e-6)
+
+
+def test_to_homo_and_transform_dirs():
+    """float32, 1e-6: ``to_homo`` appends ones; ``transform_dirs`` rotates
+    without translating, with ``transform_pts``'s batch rule (one tf per
+    point set, and one tf per point)."""
+    rng = np.random.default_rng(12)
+    pts = rng.normal(size=(5, 7, 3)).astype(np.float32)
+    np.testing.assert_allclose(_np(geo.to_homo(pts)), np.asarray(jgeo.to_homo(pts)), atol=1e-6)
+    assert geo.to_homo(torch.zeros(2, 3, dtype=torch.float64)).dtype == torch.float64
+    tfs = _rand_poses(5, rng)
+    for dirs, tf in ((pts, tfs), (pts[0], _rand_poses(7, rng)), (pts[0], tfs[0])):
+        np.testing.assert_allclose(_np(geo.transform_dirs(dirs, tf)),
+                                   np.asarray(jgeo.transform_dirs(dirs, tf)), atol=1e-6)
+
+
+def test_normalize_rotation():
+    """Columns of a scaled rotation block back to unit length; 1e-6."""
+    rng = np.random.default_rng(13)
+    poses = _rand_poses(6, rng)
+    poses[:, :3, :3] *= rng.uniform(0.5, 2.0, (6, 1, 3)).astype(np.float32)
+    out = _np(geo.normalize_rotation(poses))
+    np.testing.assert_allclose(out, np.asarray(jgeo.normalize_rotation(poses)), atol=1e-6)
+    np.testing.assert_allclose(np.linalg.norm(out[:, :3, :3], axis=-2), 1.0, atol=1e-6)
+    np.testing.assert_array_equal(out[:, :3, 3], poses[:, :3, 3])
+
+
+@pytest.mark.parametrize("hw,near_far", [((480, 640), (0.01, 10.0)), ((240, 320), (0.1, 2.5))])
+def test_projection_matrix_from_intrinsics_bit_for_bit(hw, near_far):
+    """numpy float64 on both sides: bit for bit."""
+    K = np.array([[615.3, 0.7, 321.25], [0, 612.9, 239.5], [0, 0, 1]])
+    out = geo.projection_matrix_from_intrinsics(K, *hw, *near_far)
+    ref = jgeo.projection_matrix_from_intrinsics(K, *hw, *near_far)
+    assert out.dtype == ref.dtype == np.float64
+    np.testing.assert_array_equal(out, ref)
+
+
 # ---------------------------------------------------------------------------
 # host helpers
 

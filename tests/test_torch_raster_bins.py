@@ -14,8 +14,14 @@ held to the properties the design depends on:
 - the texture + lighting arithmetic written tap by tap in the kernel's order
   equals ``_sample_texture`` + ``shade``;
 - the wrapper counts launches per kernel and never gives way to the plain
-  version on its own.
+  version on its own, and names the library file each launch called into
+  by the launch function's address.
 """
+
+import ctypes
+import os
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -255,3 +261,27 @@ def test_kernel_entry_points_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="1..65535"):
         raster_cuda.setup_cuda(mt, p[:0], Kt, tfs[:0], HW)
     assert raster_cuda.LAUNCHES == before
+
+
+def test_launched_libraries_place_each_launch_function_by_its_address(tmp_path, monkeypatch):
+    """``launched_libraries`` asks the dynamic loader which file holds the
+    code of each launch function called, so two libraries built from one
+    source with different ``-D`` switches (as the parts timer builds its
+    parts) are told apart, and a library loaded through a link is named by
+    its file."""
+    src = tmp_path / "part.cpp"
+    src.write_text('extern "C" int fp_part(void) { return PART; }\n')
+    files, fns = {}, {}
+    for part in (0, 1):
+        files[part] = str(tmp_path / f"libpart{part}.so")
+        subprocess.run([shutil.which("g++"), "-shared", "-fPIC", f"-DPART={part}", "-o",
+                        files[part], str(src)], check=True)
+    os.symlink(files[1], tmp_path / "link.so")
+    fns = {0: ctypes.CDLL(files[0]).fp_part, 1: ctypes.CDLL(str(tmp_path / "link.so")).fp_part}
+    assert (fns[0](), fns[1]()) == (0, 1)
+    monkeypatch.setattr(raster_cuda, "_LAUNCHED_FNS",
+                        {"K1s": {id(fns[0]): fns[0]},
+                         "K1r": {id(fns[0]): fns[0], id(fns[1]): fns[1]}})
+    assert raster_cuda.launched_libraries() == {
+        "K1s": {os.path.realpath(files[0])},
+        "K1r": {os.path.realpath(files[0]), os.path.realpath(files[1])}}

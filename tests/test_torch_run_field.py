@@ -209,6 +209,55 @@ def test_save_load_round_trip(scene, tmp_path):
     assert draws["ids"].shape == (TINY["n_rand"],)
 
 
+def test_save_field_load_field_round_trip(scene, tmp_path):
+    """``models/checkpoint.save_field`` / ``load_field`` (the JAX package's
+    names) carry what the JAX package's carry: into a runner built on the
+    same frames with another seed and another occupancy grid, the parameters,
+    both optimisers' states, the step, the normalisation and the occupancy
+    grid come back equal."""
+    from foundationpose_tpu_torch.models import checkpoint
+
+    a = NeRFRunner(FieldConfig(**dict(TINY, optimize_poses=True)), *scene, device="cpu")
+    a.train(n_step=3, log_every=10)
+    path = str(tmp_path / "field_state.pt")
+    checkpoint.save_field(a, path)
+    occ = np.asarray(scene[5])[::2]  # a thinner cloud: another occupancy grid
+    b = NeRFRunner(FieldConfig(**dict(TINY, optimize_poses=True, seed=5)),
+                   *scene[:5], occ, *scene[6:], device="cpu")
+    assert not torch.equal(a.occ_grid, b.occ_grid)
+    checkpoint.load_field(b, path)
+    assert b.global_step == a.global_step == 3
+    assert b.sc_factor == a.sc_factor
+    np.testing.assert_array_equal(b.translation, a.translation)
+    assert torch.equal(b.occ_grid, a.occ_grid)
+    for (n, p), q in zip(a.field.state_dict().items(), b.field.state_dict().values()):
+        assert torch.equal(p, q), n
+    assert a.opt_pose is not None and b.opt_pose is not None
+    for oa, ob in ((a.opt, b.opt), (a.opt_pose, b.opt_pose)):
+        for x, y in zip([*oa.mu, *oa.nu, oa.count], [*ob.mu, *ob.nu, ob.count]):
+            assert torch.equal(x, y)
+
+
+def test_load_of_a_checkpoint_without_occupancy_grid_keeps_the_runners(scene, tmp_path):
+    """A field checkpoint written before the occupancy grid was saved (no
+    ``occ_grid`` key) still resumes: the parameters and the step come back,
+    and the runner keeps the grid it built from its own frames."""
+    a = NeRFRunner(FieldConfig(**TINY), *scene, device="cpu")
+    a.train(n_step=2, log_every=10)
+    path = str(tmp_path / "old.pt")
+    a.save(path)
+    data = torch.load(path, weights_only=True)
+    del data["occ_grid"]
+    torch.save(data, path)
+    b = NeRFRunner(FieldConfig(**dict(TINY, seed=5)), *scene, device="cpu")
+    grid = b.occ_grid.clone()
+    b.load(path)
+    assert b.global_step == 2
+    assert torch.equal(b.occ_grid, grid)
+    for (n, p), q in zip(a.field.state_dict().items(), b.field.state_dict().values()):
+        assert torch.equal(p, q), n
+
+
 def test_train_observability_and_artifact_hooks(scene, tmp_path):
     """Mirror of tests/test_field.py::test_train_observability_and_artifact_hooks:
     the i_weights / i_img / i_mesh hooks leave ckpt/, image_step/*.png (the

@@ -205,6 +205,35 @@ def test_five_optimizer_steps_match_optax(recipe):
         assert int(opt.total_notfinite) == int(state.total_notfinite) == 1
 
 
+def test_make_refiner_train_state_is_flax_init_and_optax_adam():
+    """The port's train state: the net re-drawn by ``flax_init`` from the
+    seed, and an optimiser that takes five steps as the JAX package's
+    ``make_refiner_train_state`` optimiser (``optax.adam(lr)``) does from the
+    same parameters on the same gradients (1e-6, as the recipes above)."""
+    net, opt = training.make_refiner_train_state(RefineNet(c_in=6), 3, input_size=S, lr=1e-3)
+    ref = convert.flax_init(RefineNet(c_in=6), 3)
+    for (k, a), b in zip(net.state_dict().items(), ref.state_dict().values()):
+        assert torch.equal(a, b), k
+    _, tx, _ = jtraining.make_refiner_train_state(
+        JRefineNet(c_in=6, dtype=jnp.float32), jax.random.PRNGKey(0), input_size=S, lr=1e-3)
+    names = [n for n, _ in net.named_parameters()]
+    params = {n: p.detach().numpy().copy() for n, p in net.named_parameters()}
+    state = tx.init(params)
+    rng = np.random.default_rng(6)
+    for sc in (0.1, 3.0, 0.5, 2.0, 0.05):
+        grads = {n: (rng.normal(0, 1, v.shape) * sc).astype(np.float32) for n, v in params.items()}
+        updates, state = tx.update(grads, state, params)
+        params = optax.apply_updates(params, updates)
+        opt.step([torch.tensor(grads[n]) for n in names])
+    count, mu, nu = _inner_adam_state(state)
+    assert int(opt.count) == count == 5
+    for j, (n, p) in enumerate(net.named_parameters()):
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(params[n]), rtol=1e-6,
+                                   atol=1e-6, err_msg=n)
+        np.testing.assert_allclose(opt.mu[j].numpy(), np.asarray(mu[n]), rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(opt.nu[j].numpy(), np.asarray(nu[n]), rtol=1e-6, atol=1e-7)
+
+
 def test_apply_if_finite_gives_way_after_max_consecutive_errors():
     """Past ``max_consecutive_errors`` non-finite steps in a row the update
     is applied anyway (and poisons the parameters), as in optax."""

@@ -183,6 +183,37 @@ def test_score_import_matches_flax_forward(bn):
     np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("kind,bn", [("refiner", False), ("refiner", True),
+                                     ("scorer", False), ("scorer", True)])
+def test_load_weights_from_pth_matches_flax_forward(tmp_path, kind, bn):
+    """One fake ``.pth`` through JAX ``load_{kind}_weights`` -> flax forward and
+    through the port's (default-width net) -> torch forward; float32, the
+    nets' gate (atol 2e-4 + rtol 1e-3)."""
+    sd = fake_refine_sd(bn=bn) if kind == "refiner" else fake_score_sd(bn=bn)
+    path = str(tmp_path / f"{kind}.pth")
+    torch.save({"model": {k: torch.tensor(v) for k, v in sd.items()}}, path)
+    A, B = _inputs(2, 64, seed=3)
+    if kind == "refiner":
+        params = jweights.load_refiner_weights(path, use_bn=bn)
+        ref = JRefineNet(c_in=6, dtype=jnp.float32).apply(params, A, B)
+        net = RefineNet(c_in=6).eval()
+        net.load_state_dict(weights.load_refiner_weights(path, use_bn=bn), strict=True)
+        with torch.no_grad():
+            out = net(torch.tensor(A), torch.tensor(B))
+        pairs = [(out[k].numpy(), np.asarray(ref[k])) for k in ("trans", "rot")]
+    else:
+        params = jweights.load_scorer_weights(path, use_bn=bn)
+        ref = JScoreNet(c_in=6, dtype=jnp.float32).apply(params, A, B, 2)
+        net = ScoreNetMultiPair(c_in=6).eval()
+        net.load_state_dict(weights.load_scorer_weights(path, use_bn=bn), strict=True)
+        with torch.no_grad():
+            out = net(torch.tensor(A), torch.tensor(B), 2)
+        pairs = [(out["score_logit"].numpy(), np.asarray(ref["score_logit"]))]
+    for got, want in pairs:
+        assert np.abs(want).max() > 1e-3  # not a trivially zero output
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
 def test_fold_bn_matches_jax():
     sd = fake_refine_sd(bn=True)
     a = weights._fold_bn(weights._conv(sd, "encodeA.0.net.0"), sd, "encodeA.0.net.1")
