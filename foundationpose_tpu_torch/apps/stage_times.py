@@ -1,19 +1,20 @@
-"""Where the time goes: per-stage wall times of one warm ``register`` and of
-``track_one`` on the demo scene, on the GPU.
+"""Where the time goes: the engine's own spans over one warm ``register``
+and one ``track_one`` on the demo scene, on the GPU.
 
 ``--mode geometric`` times the geometric mode (10 + 8 ICP iterations), and
 ``--funnel`` the documented funnel schedule (top 64 after one coarse iteration
 at 112 px) of the learned mode.
 
-Each stage function (depth preprocessing, the two kernels of a render call —
-K1s and K1r, each with the allocations of its wrapper —, observed warp,
-RefineNet forward, ScoreNet forward, or the ICP's solve in geometric mode) is
-wrapped with a timer that
-synchronises the device before and after, so a stage's figure is device
-work plus the Python overhead of launching it. Synchronising serialises host
-and device, so the stages sum to somewhat more than an unwrapped call (both
-are printed). "other" is what no wrapped stage covers: crop normalisation,
-gating, the geometric score's own arithmetic, sorting, uploads.
+After the wall times of untraced calls, each of the two calls runs once
+under ``utils/profiling.trace``, which writes the Chrome trace and the span
+records (``trace.json``, ``spans.json``) into
+``<temporary directory>/foundationpose_trace/<call>``, and its
+``profiling.summary()`` is printed: per span (preprocess, each refine
+iteration, the crops' render and observed side, the nets, the ICP solve,
+each score, the polish, K1's launches, the host's waits) the calls, the host
+ms in and under it (``total_ms``) and in it alone (``self_ms``), and the
+batch it covered. Nothing synchronises between spans; the device time of
+each span is in the trace.
 
 ``--train`` times a training step instead, for the refiner (batch 32) and
 the scorer (16 hypotheses), 160 px, float32, on an 8-mesh corpus at the
@@ -43,38 +44,16 @@ Usage: python -m foundationpose_tpu_torch.apps.stage_times [--mode geometric] [-
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
+import os
 import subprocess
+import tempfile
 import time
 
 import torch
 
+from foundationpose_tpu_torch.utils import profiling
 from foundationpose_tpu_torch.utils.profiling import StageTimer
-
-
-@contextlib.contextmanager
-def timed_stages(est):
-    from foundationpose_tpu_torch.engine import crop, estimator, geometric
-
-    t = StageTimer(device=est.device)
-    undo = [
-        t.wrap(estimator, "preprocess_depth", "preprocess (erode+bilateral+xyz)"),
-        t.wrap(crop.raster_cuda, "setup_cuda", "render: K1s (face setup + tile bins)"),
-        t.wrap(crop.raster_cuda, "rasterize_cuda", "render: K1r (rasterizer)"),
-        t.wrap(crop.imops, "warp_crop_affine", "observed warp"),
-    ]
-    if hasattr(est.refiner, "net"):
-        undo += [t.wrap(est.refiner.net, "forward", "RefineNet forward"),
-                 t.wrap(est.scorer.net, "forward", "ScoreNet forward")]
-    else:
-        undo.append(t.wrap(geometric, "_point_to_plane_delta",
-                           "ICP solve (normal equations + 6x6 solve + exp map)"))
-    try:
-        yield t
-    finally:
-        for u in undo:
-            u()
 
 
 def wall_ms(fn):
@@ -398,10 +377,8 @@ def main(argv=None):
     frames = list(demo.motion_frames(scene, 6))
     args = (scene["K"], scene["rgb"], scene["depth"], scene["mask"])
     est.register(*args)  # warm-up: kernel build, cuDNN algorithm choice
-    reg_unwrapped = wall_ms(lambda: est.register(*args))
     est.track_one(frames[0][1], frames[0][2], scene["K"])  # warm-up
-    trk_unwrapped = wall_ms(lambda: est.track_one(frames[1][1], frames[1][2], scene["K"]))
-    # the spread of the unwrapped calls: 5 registers, 4 passes over 5 frames
+    # the spread of the untraced calls: 5 registers, 4 passes over 5 frames
     reg_runs = [wall_ms(lambda: est.register(*args)) for _ in range(5)]
     start = est.pose_last.copy()
     trk_runs = []
@@ -409,22 +386,21 @@ def main(argv=None):
         est.pose_last = start
         for _, rgb_f, depth_f in frames[:5]:
             trk_runs.append(wall_ms(lambda: est.track_one(rgb_f, depth_f, scene["K"])))
-    print(json.dumps({"call": "unwrapped repeats", "register_ms": sorted(reg_runs),
+    print(json.dumps({"call": "untraced repeats", "register_ms": sorted(reg_runs),
                       "track_one_ms_min": min(trk_runs),
                       "track_one_ms_median": sorted(trk_runs)[len(trk_runs) // 2],
                       "track_one_ms": trk_runs}), flush=True)
-    with timed_stages(est) as t:
-        total = wall_ms(lambda: est.register(*args))
-        report(f"register ({opts.mode}, 252 hyps, 160 px, {schedule})", total, reg_unwrapped, t)
-        for _, rgb_f, depth_f in frames[2:]:
-            t.reset()
-            total = wall_ms(lambda: est.track_one(rgb_f, depth_f, scene["K"]))
-        report(f"track_one ({opts.mode}, 8 hyps, 2 it), last of 4 frames", total, trk_unwrapped, t)
-
-    # device busy share of one warm track_one, from the profiler
-    print(json.dumps({"call": "track_one under torch.profiler",
-                      **busy_share(lambda: est.track_one(frames[1][1], frames[1][2],
-                                                         scene["K"]))}), flush=True)
+    _, rgb_f, depth_f = frames[5]  # the frame after the last one tracked
+    for name, label, call in (
+            ("register", f"register ({opts.mode}, 252 hyps, 160 px, {schedule})",
+             lambda: est.register(*args)),
+            ("track_one", f"track_one ({opts.mode}, 8 hyps, 2 it)",
+             lambda: est.track_one(rgb_f, depth_f, scene["K"]))):
+        log_dir = os.path.join(tempfile.gettempdir(), "foundationpose_trace", name)
+        with profiling.trace(log_dir):
+            traced = wall_ms(call)
+        print(json.dumps({"call": label, "wall_ms_traced": traced, "trace": log_dir,
+                          "spans": profiling.summary()}), flush=True)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ import torch
 from foundationpose_tpu_torch.core import geometry as geo
 from foundationpose_tpu_torch.ops import image as imops
 from foundationpose_tpu_torch.ops import raster_cuda
+from foundationpose_tpu_torch.utils.profiling import span
 
 
 def make_crop_batch(
@@ -50,63 +51,65 @@ def make_crop_batch(
     """
     S = out_size
     dev = mesh_tensors["pos"].device
-    poses = geo.as_f32(poses, dev)
-    K = geo.as_f32(K, dev)
-    rgb = geo.as_f32(rgb, dev)
-    xyz_map = geo.as_f32(xyz_map, dev)
+    n = len(poses)
+    with span("crop.render", n, S):
+        poses = geo.as_f32(poses, dev)
+        K = geo.as_f32(K, dev)
+        tfs = geo.compute_crop_window_tf_batch(poses, K, crop_ratio, mesh_diameter, (S, S))
+        r = raster_cuda.render_crops(
+            mesh_tensors, poses, K, tfs, out_hw=(S, S), use_light=True,
+            backface_cull=backface_cull, with_normal=use_normal,
+        )
+    with span("crop.observe", n):
+        rgb = geo.as_f32(rgb, dev)
+        xyz_map = geo.as_f32(xyz_map, dev)
+        rgbA = r["rgb"]  # already [0,1]
+        xyzA = r["xyz"]
+        t = poses[:, :3, 3]
 
-    tfs = geo.compute_crop_window_tf_batch(poses, K, crop_ratio, mesh_diameter, (S, S))
-    r = raster_cuda.render_crops(
-        mesh_tensors, poses, K, tfs, out_hw=(S, S), use_light=True,
-        backface_cull=backface_cull, with_normal=use_normal,
-    )
-    rgbA = r["rgb"]  # already [0,1]
-    xyzA = r["xyz"]
-    t = poses[:, :3, 3]
+        rgbB = imops.warp_crop_affine(rgb, tfs, (S, S), mode="bilinear") / 255.0
+        # validity rides along as a fourth, exactly-warped 0/1 channel
+        valid_src = (xyz_map[..., 2:] >= z_invalid_thres).float()
+        w = imops.warp_crop_affine(
+            torch.cat([xyz_map, valid_src], dim=-1), tfs, (S, S), mode="nearest"
+        )
+        xyzB = w[..., :3]
+        validB = w[..., 3:] > 0.5
 
-    rgbB = imops.warp_crop_affine(rgb, tfs, (S, S), mode="bilinear") / 255.0
-    # validity rides along as a fourth, exactly-warped 0/1 channel
-    valid_src = (xyz_map[..., 2:] >= z_invalid_thres).float()
-    w = imops.warp_crop_affine(
-        torch.cat([xyz_map, valid_src], dim=-1), tfs, (S, S), mode="nearest"
-    )
-    xyzB = w[..., :3]
-    validB = w[..., 3:] > 0.5
+        if gate_px:
+            # per-hypothesis silhouette gating of the OBSERVED side: tracking has
+            # no segmentation mask, and the candidate's own dilated silhouette is
+            # the best available object prior; gated-away depth reads as holes
+            g = imops.dilate_mask(r["mask"], int(gate_px))[..., None]
+            rgbB = rgbB * g
+            xyzB = torch.where(g, xyzB, torch.zeros_like(xyzB))
+            validB = validB & g
 
-    if gate_px:
-        # per-hypothesis silhouette gating of the OBSERVED side: tracking has
-        # no segmentation mask, and the candidate's own dilated silhouette is
-        # the best available object prior; gated-away depth reads as holes
-        g = imops.dilate_mask(r["mask"], int(gate_px))[..., None]
-        rgbB = rgbB * g
-        xyzB = torch.where(g, xyzB, torch.zeros_like(xyzB))
-        validB = validB & g
+        def normalize(xyz, thres, valid=None):
+            invalid = xyz[..., 2:3] < thres  # (N,S,S,1)
+            if valid is not None:
+                invalid = invalid | ~valid
+            centered = xyz - t[:, None, None, :]
+            if not normalize_xyz:
+                return centered
+            radius = mesh_diameter / 2.0
+            scaled = centered / radius
+            bad = invalid | (scaled.abs() >= 2)  # per-channel
+            return torch.where(bad, torch.zeros_like(scaled), scaled)
 
-    def normalize(xyz, thres, valid=None):
-        invalid = xyz[..., 2:3] < thres  # (N,S,S,1)
-        if valid is not None:
-            invalid = invalid | ~valid
-        centered = xyz - t[:, None, None, :]
-        if not normalize_xyz:
-            return centered
-        radius = mesh_diameter / 2.0
-        scaled = centered / radius
-        bad = invalid | (scaled.abs() >= 2)  # per-channel
-        return torch.where(bad, torch.zeros_like(scaled), scaled)
+        xyzA_n = normalize(xyzA, z_invalid_thres)
+        xyzB_n = normalize(xyzB, z_invalid_thres, valid=validB)
 
-    xyzA_n = normalize(xyzA, z_invalid_thres)
-    xyzB_n = normalize(xyzB, z_invalid_thres, valid=validB)
-
-    out = {
-        "inputA": torch.cat([rgbA, xyzA_n], dim=-1),
-        "inputB": torch.cat([rgbB, xyzB_n], dim=-1),
-        "rgbA": rgbA,
-        "rgbB": rgbB,
-        "depthA": r["depth"],
-        "tf_to_crops": tfs,
-        "mask": r["mask"],
-        "validB": validB,
-    }
-    if use_normal:
-        out["normalA"] = r["normal"]
-    return out
+        out = {
+            "inputA": torch.cat([rgbA, xyzA_n], dim=-1),
+            "inputB": torch.cat([rgbB, xyzB_n], dim=-1),
+            "rgbA": rgbA,
+            "rgbB": rgbB,
+            "depthA": r["depth"],
+            "tf_to_crops": tfs,
+            "mask": r["mask"],
+            "validB": validB,
+        }
+        if use_normal:
+            out["normalA"] = r["normal"]
+        return out

@@ -72,6 +72,7 @@ from foundationpose_tpu_torch.engine.refiner import PoseRefiner, RefinerConfig
 from foundationpose_tpu_torch.engine.scorer import PoseScorer, ScorerConfig
 from foundationpose_tpu_torch.ops import image as imops
 from foundationpose_tpu_torch.ops import raster, raster_cuda
+from foundationpose_tpu_torch.utils.profiling import span
 
 HYP_BUCKET = 32  # register pads the hypothesis axis to a multiple of this
 
@@ -239,7 +240,8 @@ class FoundationPoseTorch:
         """Last pose of the centred mesh, (4,4) float64. While tracking, the
         chain lives on the device; reading this waits for it."""
         if self._pose_last_dev is not None and self._pose_last_np is None:
-            self._pose_last_np = _PoseDownload(self._pose_last_dev).numpy()[0]
+            with span("estimator.pose_last.wait"):
+                self._pose_last_np = _PoseDownload(self._pose_last_dev).numpy()[0]
         return self._pose_last_np
 
     @pose_last.setter
@@ -398,28 +400,34 @@ class FoundationPoseTorch:
     def register(self, K, rgb, depth, ob_mask, iteration=None):
         """Global registration. Returns (4,4) float64 pose of the ORIGINAL
         (uncentred) mesh in camera."""
-        iteration = int(iteration or self.cfg.register_iterations)
-        K = np.asarray(validate.check_intrinsics(K), dtype=np.float64)
-        rgb, depth = validate.check_rgbd(rgb, depth, name="register")
-        ob_mask = validate.check_mask(ob_mask, depth.shape, name="register")
-        cfg, dev = self.cfg, self.device
+        with span("estimator.register"):
+            return self._register(K, rgb, depth, ob_mask, iteration)
 
-        K_t = _upload(K, dev, torch.float32)
-        rgb_t = _upload(self._as_u8(rgb), dev).float()
-        depth_t = _upload(np.asarray(depth, np.float32), dev)
-        mask_t = _upload(np.asarray(ob_mask) > 0, dev)
-        if cfg.register_mask_dilation:
-            # gate the OBSERVED frame to a dilated margin around the
-            # segmentation mask; zeroed depth reads as sensor holes
-            gate = imops.dilate_mask(mask_t, radius=int(cfg.register_mask_dilation))
-            depth_t = torch.where(gate, depth_t, torch.zeros_like(depth_t))
-            rgb_t = rgb_t * gate[..., None]
-        d, xyz_map = preprocess_depth(depth_t, K_t, self.device_mesh)
-        center, n_valid = guess_translation(d, mask_t, K_t)
+    def _register(self, K, rgb, depth, ob_mask, iteration):
+        iteration = int(iteration or self.cfg.register_iterations)
+        cfg, dev = self.cfg, self.device
+        with span("estimator.preprocess"):
+            K = np.asarray(validate.check_intrinsics(K), dtype=np.float64)
+            rgb, depth = validate.check_rgbd(rgb, depth, name="register")
+            ob_mask = validate.check_mask(ob_mask, depth.shape, name="register")
+            K_t = _upload(K, dev, torch.float32)
+            rgb_t = _upload(self._as_u8(rgb), dev).float()
+            depth_t = _upload(np.asarray(depth, np.float32), dev)
+            mask_t = _upload(np.asarray(ob_mask) > 0, dev)
+            if cfg.register_mask_dilation:
+                # gate the OBSERVED frame to a dilated margin around the
+                # segmentation mask; zeroed depth reads as sensor holes
+                gate = imops.dilate_mask(mask_t, radius=int(cfg.register_mask_dilation))
+                depth_t = torch.where(gate, depth_t, torch.zeros_like(depth_t))
+                rgb_t = rgb_t * gate[..., None]
+            d, xyz_map = preprocess_depth(depth_t, K_t, self.device_mesh)
+        with span("estimator.translation.wait"):
+            center, n_valid = guess_translation(d, mask_t, K_t)
         if n_valid < 4:
             logging.info("valid pixel count < 4; returning translation-only pose")
             pose = np.eye(4)
-            pose[:3, 3] = center.cpu().numpy()
+            with span("estimator.readback.wait"):
+                pose[:3, 3] = center.cpu().numpy()
             return pose
 
         # pad the hypothesis axis to its bucket (and to a multiple of the
@@ -440,13 +448,15 @@ class FoundationPoseTorch:
             """Refine the ``k`` best for ``iterations`` more on the full mesh
             at full size, rescore them and lift them above the field (+100);
             a rescored entry never resurrects a pad's -inf."""
-            top_i = self._top_k(scores, min(k, n_hyp))
-            top = self._refine(mt, obs, refined[top_i], diam, iterations)
-            top_s = self._score(mt, obs, top, diam)
-            refined, scores = refined.clone(), scores.clone()
-            refined[top_i] = top
-            scores[top_i] = top_s + 100.0
-            return refined, scores.masked_fill(is_pad, -torch.inf)
+            k = min(k, n_hyp)
+            with span("estimator.polish", k):
+                top_i = self._top_k(scores, k)
+                top = self._refine(mt, obs, refined[top_i], diam, iterations)
+                top_s = self._score(mt, obs, top, diam)
+                refined, scores = refined.clone(), scores.clone()
+                refined[top_i] = top
+                scores[top_i] = top_s + 100.0
+                return refined, scores.masked_fill(is_pad, -torch.inf)
 
         n_coarse = min(cfg.funnel_coarse_iterations, iteration - 1)
         if 0 < cfg.funnel_top_k < n_hyp and iteration > n_coarse > 0:
@@ -466,10 +476,11 @@ class FoundationPoseTorch:
             refined, scores = rescore_top(
                 refined, scores, cfg.final_refine_top_k, cfg.final_refine_iterations)
         order = torch.argsort(-scores, stable=True)[:n_orig]  # pads are the tail
-        self.poses = refined[order].cpu().numpy().astype(np.float64)
-        self.scores = scores[order].cpu().numpy()
-        self.hyp_order = order.cpu().numpy()  # ranked slot -> rotation-grid index
-        self._last_center = center.cpu().numpy()
+        with span("estimator.readback.wait"):
+            self.poses = refined[order].cpu().numpy().astype(np.float64)
+            self.scores = scores[order].cpu().numpy()
+            self.hyp_order = order.cpu().numpy()  # ranked slot -> rotation-grid index
+            self._last_center = center.cpu().numpy()
         self._last_iteration = iteration
         self.pose_last = self.poses[0]
         best = self.poses[0] @ self.get_tf_to_centered_mesh()
@@ -599,28 +610,34 @@ class FoundationPoseTorch:
         returned. Both modes give the same poses."""
         if self._pose_last_dev is None and self._pose_last_np is None:
             raise RuntimeError("call register() before track_one()")
+        with span("estimator.track_one"):
+            return self._track_one(rgb, depth, K, iteration, sync)
+
+    def _track_one(self, rgb, depth, K, iteration, sync):
         iteration = int(iteration or self.cfg.track_iterations)
-        K = np.asarray(validate.check_intrinsics(K), dtype=np.float64)
-        rgb, depth = validate.check_rgbd(rgb, depth, name="track_one")
-        rgb_u8 = self._as_u8(rgb)
-        depth = np.asarray(depth, np.float32)
-        rgb_u8, depth, K = self._pretrack_crop(rgb_u8, depth, K)
-        # The JAX package sends tracking depth as 16-bit steps of 0.25 mm
-        # (dynamic scale beyond 16.4 m); the same rounding is applied here so
-        # both packages filter the same depth values.
-        dmax = float(depth.max()) if depth.size else 0.0
-        scale = 0.00025 if dmax <= 0.00025 * 65535.0 else dmax / 65535.0
-        depth_q = (np.clip(depth, 0.0, None) * (1.0 / scale) + 0.5).astype(np.uint16)
-        depth = depth_q.astype(np.float32) * np.float32(scale)
+        with span("estimator.precrop"):
+            K = np.asarray(validate.check_intrinsics(K), dtype=np.float64)
+            rgb, depth = validate.check_rgbd(rgb, depth, name="track_one")
+            rgb_u8 = self._as_u8(rgb)
+            depth = np.asarray(depth, np.float32)
+            rgb_u8, depth, K = self._pretrack_crop(rgb_u8, depth, K)
+            # The JAX package sends tracking depth as 16-bit steps of 0.25 mm
+            # (dynamic scale beyond 16.4 m); the same rounding is applied here
+            # so both packages filter the same depth values.
+            dmax = float(depth.max()) if depth.size else 0.0
+            scale = 0.00025 if dmax <= 0.00025 * 65535.0 else dmax / 65535.0
+            depth_q = (np.clip(depth, 0.0, None) * (1.0 / scale) + 0.5).astype(np.uint16)
+            depth = depth_q.astype(np.float32) * np.float32(scale)
 
         # nothing below reads a device value on the host
         dev = self.device
-        K_t = _upload(K, dev, torch.float32)
-        rgb_t = _upload(rgb_u8, dev).float()
-        _, xyz_map = preprocess_depth(_upload(depth, dev), K_t)
-        pose_last = self._pose_last_dev
-        if pose_last is None:
-            pose_last = _upload(self._pose_last_np[None], dev, torch.float32)
+        with span("estimator.preprocess"):
+            K_t = _upload(K, dev, torch.float32)
+            rgb_t = _upload(rgb_u8, dev).float()
+            _, xyz_map = preprocess_depth(_upload(depth, dev), K_t)
+            pose_last = self._pose_last_dev
+            if pose_last is None:
+                pose_last = _upload(self._pose_last_np[None], dev, torch.float32)
         mt, diam = self.mesh_tensors, float(self.diameter)
         if self.cfg.track_hypotheses > 1:
             gate = int(self.cfg.track_gate_px)
@@ -652,7 +669,8 @@ class FoundationPoseTorch:
             # download up once it has landed
             self._pending = landing
             return out
-        arr = landing.numpy()
+        with span("estimator.readback.wait"):
+            arr = landing.numpy()
         self._pose_last_np = self._pose_hint = arr[0]
         self._pending = None
         return arr[1]

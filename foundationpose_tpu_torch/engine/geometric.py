@@ -27,6 +27,7 @@ import torch
 from foundationpose_tpu_torch import resolve_device
 from foundationpose_tpu_torch.core import geometry as geo
 from foundationpose_tpu_torch.engine.crop import make_crop_batch
+from foundationpose_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,31 +151,33 @@ def _icp_refine(cfg, mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
     poses = geo.as_f32(poses, mesh_tensors["pos"].device)
     tau0 = cfg.tau0_rel * mesh_diameter
     tau1 = 0.5 * cfg.tau_rel * mesh_diameter
+    B = poses.shape[0]
     for _ in range(int(iteration)):
-        data = make_crop_batch(
-            mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
-            crop_ratio=cfg.crop_ratio, out_size=cfg.input_size,
-            normalize_xyz=False, z_invalid_thres=0.001, use_normal=True,
-            backface_cull=cfg.backface_cull, gate_px=int(gate_px),
-        )
-        # un-centre the crop xyz maps (normalize_xyz=False still subtracts t)
-        t = poses[:, :3, 3][:, None, None, :]
-        xyzA = data["inputA"][..., 3:] + t  # rendered, camera space
-        xyzB = data["inputB"][..., 3:] + t  # observed, camera space
-        validA = data["mask"][..., None] & (xyzA[..., 2:3] > 0.001)
-        valid = (validA & data["validB"]).float()  # the exactly-warped validity
-        err = torch.linalg.norm(xyzA - xyzB, dim=-1, keepdim=True)
-        # outliers beyond tau0 (background, occluders) cannot inflate the mean
-        n_valid = valid.sum(dim=(1, 2, 3)).clamp_min(1.0)
-        e_mean = (valid * err.clamp_max(tau0)).sum(dim=(1, 2, 3)) / n_valid
-        tau = (2.0 * e_mean).clamp(tau1, tau0)[:, None, None, None]
-        w = (valid * (err < tau).float())[..., 0]
-        B = poses.shape[0]
-        deltas = _point_to_plane_delta(
-            xyzA.reshape(B, -1, 3), xyzB.reshape(B, -1, 3),
-            data["normalA"].reshape(B, -1, 3), w.reshape(B, -1),
-        )
-        poses = deltas @ poses
+        with span("geometric.iteration", B):
+            data = make_crop_batch(
+                mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
+                crop_ratio=cfg.crop_ratio, out_size=cfg.input_size,
+                normalize_xyz=False, z_invalid_thres=0.001, use_normal=True,
+                backface_cull=cfg.backface_cull, gate_px=int(gate_px),
+            )
+            # un-centre the crop xyz maps (normalize_xyz=False still subtracts t)
+            t = poses[:, :3, 3][:, None, None, :]
+            xyzA = data["inputA"][..., 3:] + t  # rendered, camera space
+            xyzB = data["inputB"][..., 3:] + t  # observed, camera space
+            validA = data["mask"][..., None] & (xyzA[..., 2:3] > 0.001)
+            valid = (validA & data["validB"]).float()  # the exactly-warped validity
+            err = torch.linalg.norm(xyzA - xyzB, dim=-1, keepdim=True)
+            # outliers beyond tau0 (background, occluders) cannot inflate the mean
+            n_valid = valid.sum(dim=(1, 2, 3)).clamp_min(1.0)
+            e_mean = (valid * err.clamp_max(tau0)).sum(dim=(1, 2, 3)) / n_valid
+            tau = (2.0 * e_mean).clamp(tau1, tau0)[:, None, None, None]
+            w = (valid * (err < tau).float())[..., 0]
+            with span("geometric.solve", B):
+                deltas = _point_to_plane_delta(
+                    xyzA.reshape(B, -1, 3), xyzB.reshape(B, -1, 3),
+                    data["normalA"].reshape(B, -1, 3), w.reshape(B, -1),
+                )
+                poses = deltas @ poses
     return poses
 
 
@@ -190,8 +193,14 @@ class GeometricRefiner:
     def refine(self, mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
                iteration=5, out_size=None, gate_px=0):
         """poses: (N,4,4) -> refined (N,4,4) float32 tensor on the device."""
-        return _icp_refine(self.cfg, mesh_tensors, poses, K, rgb, xyz_map,
-                           mesh_diameter, int(iteration), gate_px=gate_px)
+        n = len(poses)
+        with span("refiner.refine", n):
+            poses = geo.as_f32(poses, mesh_tensors["pos"].device)
+            for _ in range(int(iteration)):
+                with span("refiner.iteration", n):
+                    poses = _icp_refine(self.cfg, mesh_tensors, poses, K, rgb, xyz_map,
+                                        mesh_diameter, 1, gate_px=gate_px)
+        return poses
 
 
 class GeometricScorer:
@@ -206,8 +215,9 @@ class GeometricScorer:
               out_size=None, gate_px=0, device_mesh=None):
         """poses: (N,4,4) -> scores (N,) float32 tensor on the device
         (``device_mesh``: see ``geo_score``)."""
-        return geo_score(self.cfg, mesh_tensors, poses, K, rgb, xyz_map,
-                         mesh_diameter, gate_px=gate_px, device_mesh=device_mesh)
+        with span("scorer.score", len(poses)):
+            return geo_score(self.cfg, mesh_tensors, poses, K, rgb, xyz_map,
+                             mesh_diameter, gate_px=gate_px, device_mesh=device_mesh)
 
 
 def geo_score(cfg, mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter, gate_px=0,
@@ -219,15 +229,17 @@ def geo_score(cfg, mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter, gate_px=
     it, wrapping round), so each slice is scored with one hypothesis of halo
     on either side, wrapped at the ends of the whole set, and the halo's
     scores are dropped."""
-    if device_mesh is None:
-        return _geo_score(cfg, mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
-                          gate_px=gate_px)
-    from foundationpose_tpu_torch.parallel.mesh import all_gather_rows, shard_rows
+    with span("geometric.score", len(poses)):
+        if device_mesh is None:
+            return _geo_score(cfg, mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
+                              gate_px=gate_px)
+        from foundationpose_tpu_torch.parallel.mesh import all_gather_rows, shard_rows
 
-    axis = device_mesh.axis_names[0]
-    mine, (lo, hi) = shard_rows(device_mesh, poses, 1, axis, wrap=True)
-    s = _geo_score(cfg, mesh_tensors, mine, K, rgb, xyz_map, mesh_diameter, gate_px=gate_px)
-    return all_gather_rows(device_mesh, s[lo:s.shape[0] - hi], axis)
+        axis = device_mesh.axis_names[0]
+        mine, (lo, hi) = shard_rows(device_mesh, poses, 1, axis, wrap=True)
+        s = _geo_score(cfg, mesh_tensors, mine, K, rgb, xyz_map, mesh_diameter,
+                       gate_px=gate_px)
+        return all_gather_rows(device_mesh, s[lo:s.shape[0] - hi], axis)
 
 
 def _normals_from_xyz(xyz, valid):

@@ -19,6 +19,7 @@ from foundationpose_tpu_torch import resolve_device
 from foundationpose_tpu_torch.core import geometry as geo
 from foundationpose_tpu_torch.engine.crop import make_crop_batch
 from foundationpose_tpu_torch.models.refine_net import RefineNet
+from foundationpose_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,12 +69,15 @@ class PoseRefiner:
     def refine(self, mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
                iteration=5, out_size=None, gate_px=0):
         """poses: (N,4,4) -> refined (N,4,4) float32 tensor on the device."""
-        poses = geo.as_f32(poses, self.device)
-        for _ in range(int(iteration)):
-            poses = refine_once(
-                self.net, mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
-                cfg=self.cfg, out_size=out_size, gate_px=gate_px,
-            )
+        n = len(poses)
+        with span("refiner.refine", n):
+            poses = geo.as_f32(poses, self.device)
+            for _ in range(int(iteration)):
+                with span("refiner.iteration", n):
+                    poses = refine_once(
+                        self.net, mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
+                        cfg=self.cfg, out_size=out_size, gate_px=gate_px,
+                    )
         return poses
 
 
@@ -104,9 +108,11 @@ def refine_once(net, mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
                 *, cfg: RefinerConfig, out_size=None, gate_px=0):
     data = refine_inputs(mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
                          cfg=cfg, out_size=out_size, gate_px=gate_px)
-    out = net(data["inputA"], data["inputB"])
-    return apply_net_output(out, poses, K, data["tf_to_crops"], mesh_diameter,
-                            cfg=cfg, out_size=out_size)
+    with span("refiner.net", data["inputA"].shape[0]):
+        out = net(data["inputA"], data["inputB"])
+    with span("refiner.update"):
+        return apply_net_output(out, poses, K, data["tf_to_crops"], mesh_diameter,
+                                cfg=cfg, out_size=out_size)
 
 
 def _deepim_trans_delta(out_trans, poses, K, tf_to_crops, input_size):

@@ -18,6 +18,7 @@ from foundationpose_tpu_torch.engine.crop import make_crop_batch
 from foundationpose_tpu_torch.engine.geometric import GeometricConfig, geo_score
 from foundationpose_tpu_torch.engine.refiner import net_dtype, seeded_init
 from foundationpose_tpu_torch.models.score_net import ScoreNetMultiPair
+from foundationpose_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,13 +49,20 @@ class PoseScorer:
             seed,
         ).to(self.device).eval()
 
-    @torch.no_grad()
     def score(self, mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
               out_size=None, gate_px=0, device_mesh=None):
         """poses: (N,4,4) -> scores (N,) float32 tensor on the device. With a
         ``device_mesh`` (first axis; N splits evenly over it) each process
         renders and encodes its slice of the hypotheses, the pair features
         are gathered in order, and every process ranks all N."""
+        with span("scorer.score", len(poses)):
+            return self._score(mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
+                               out_size, gate_px, device_mesh)
+
+    @torch.no_grad()
+    def _score(self, mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
+               out_size, gate_px, device_mesh):
+        """``score`` without its span (the hybrid's learned term)."""
         cfg = self.cfg
         n = poses.shape[0]
         if device_mesh is not None:
@@ -68,15 +76,16 @@ class PoseScorer:
             z_invalid_thres=0.1,  # scorer-dataset semantics
             backface_cull=cfg.backface_cull, gate_px=int(gate_px),
         )
-        if device_mesh is None:
-            return self.net(data["inputA"], data["inputB"], n)["score_logit"].reshape(-1)
-        from foundationpose_tpu_torch.parallel.mesh import all_gather_rows
+        with span("scorer.net", data["inputA"].shape[0]):
+            if device_mesh is None:
+                return self.net(data["inputA"], data["inputB"], n)["score_logit"].reshape(-1)
+            from foundationpose_tpu_torch.parallel.mesh import all_gather_rows
 
-        feats = self.net.pair_features(data["inputA"], data["inputB"])
-        # gathered in float32: exact for bf16 features, and both backends reduce it
-        feats = all_gather_rows(device_mesh, feats.float(),
-                                device_mesh.axis_names[0]).to(feats.dtype)
-        return self.net.rank(feats, n)["score_logit"].reshape(-1)
+            feats = self.net.pair_features(data["inputA"], data["inputB"])
+            # gathered in float32: exact for bf16 features, and both backends reduce it
+            feats = all_gather_rows(device_mesh, feats.float(),
+                                    device_mesh.axis_names[0]).to(feats.dtype)
+            return self.net.rank(feats, n)["score_logit"].reshape(-1)
 
 
 
@@ -116,9 +125,10 @@ class HybridScorer:
 
     def score(self, mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
               out_size=None, gate_px=0, device_mesh=None):
-        s = self.learned.score(mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
-                               out_size=out_size, gate_px=gate_px, device_mesh=device_mesh)
-        g = geo_score(self.geo_cfg, mesh_tensors, poses, K, rgb, xyz_map,
-                      mesh_diameter, gate_px=gate_px, device_mesh=device_mesh)
-        return s + self.weight * g
+        with span("scorer.score", len(poses)):
+            s = self.learned._score(mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
+                                    out_size, gate_px, device_mesh)
+            g = geo_score(self.geo_cfg, mesh_tensors, poses, K, rgb, xyz_map,
+                          mesh_diameter, gate_px=gate_px, device_mesh=device_mesh)
+            return s + self.weight * g
 

@@ -46,8 +46,10 @@ import numpy as np
 import torch
 
 from foundationpose_tpu_torch.ops import raster as plain
+from foundationpose_tpu_torch.utils.profiling import span
 
 LAUNCHES = {"K1s": 0, "K1r": 0}  # one more per launch of that kernel
+_SPANS = {"K1s": "raster.K1s", "K1r": "raster.K1r"}  # the launch call's span
 BUILD_LOG = {}        # kernel -> compiler output (ptxas register / shared memory report)
 BBOX_PAD = 0.5        # pixels; covers the -1e-6 edge epsilon and f32 rounding
 TILE = 16             # pixels; a block of K1r owns one TILE x TILE tile
@@ -232,7 +234,7 @@ def _check(name, x, dtype, shape):
 
 def _launch(name, dev, *args):
     fn = build()[name]
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span(_SPANS[name]):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
