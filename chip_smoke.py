@@ -59,8 +59,14 @@ bf16 nets from the shipped object-agnostic checkpoint where a net runs):
   every path launched the default build of both kernels, no part's library.
 
 It builds every CUDA kernel of those paths (K1s: face setup and tile binning,
-K1r: the crop rasterizer) from the sources in this checkout, holds each
-kernel against its plain PyTorch version on the card — also at 480x640, B = 1,
+K1r: the crop rasterizer, K2: the frame's depth preprocess) from the sources
+in this checkout, holds K2 against its plain composition bit for bit (the
+register frame, the tracker's pre-crop, a row block with its halo, a frame
+with holes and out-of-range depth) and, on every path below, counts its
+launches from 0 and holds them at one per depth frame preprocessed (per
+``register`` or tracked frame, per ``--debug 3`` replay, per object of a
+multi-object step, per SLAM step; none in training or baking), holds K1s and K1r
+against their plain PyTorch versions on the card — also at 480x640, B = 1,
 on every mesh of the evaluation suite, and at the training shapes (B = 32 and
 16 x 160 px, 2048-face corpus meshes, lit, unculled, no normals) and at the
 bake's (views x 480x640, unlit, unculled, tri + bary) —, and counts each kernel's launches
@@ -578,6 +584,100 @@ def check_kernels(scene, torch):
             "setup_worst": setup_worst, "curve": curve, "funnel_curve": funnel_curve}
 
 
+DEPTH_HALO_ROWS = (116, 244)  # rank 1 of a 4-way row split of 480 rows, with its 4-row halo
+
+
+def noisy_depth(hw, seed):
+    """A depth frame in metres with sensor noise, a step edge, 8 % holes, a
+    hole block and out-of-range pixels (beyond zfar, infinite, negative)."""
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    yy, xx = np.mgrid[0:H, 0:W]
+    depth = 0.6 + 0.0015 * xx + 0.001 * yy + rng.normal(0, 0.0015, hw)
+    depth[H // 5:H // 2, W // 4:W // 2] -= 0.15
+    depth[rng.uniform(size=hw) < 0.08] = 0.0
+    depth[H // 2:H // 2 + 10, W // 2:W // 2 + 12] = 0.0
+    depth[rng.uniform(size=hw) < 0.002] = 150.0
+    depth[rng.uniform(size=hw) < 0.001] = np.inf
+    depth[rng.uniform(size=hw) < 0.001] = -0.3
+    return depth.astype(np.float32)
+
+
+def compare_depth_outputs(torch, got, ref):
+    """K2's output against the plain composition's: the largest difference,
+    the elements whose bits differ, and the pixels zero in one and not the
+    other."""
+    return {"max_abs_err": float((got - ref).abs().max()),
+            "elements_differ": int((got != ref).sum()),
+            "zero_flips": int(((got == 0) != (ref == 0)).sum())}
+
+
+def run_depth_kernel(torch, depth_cuda, scene, smi):
+    """K2 against the plain composition (erode -> bilateral -> xyz map) on the
+    card: the register frame (480x640), the tracker's 224x224 pre-crop, a
+    row block with its halo (filter only, as the row-sharded preprocess runs
+    it) and a frame with holes and out-of-range depth; one launch per call,
+    two calls the same bits; then its time beside its bound and the plain
+    composition's."""
+    dev = torch.device("cuda")
+    K = torch.tensor(scene["K"], dtype=torch.float32, device=dev)
+    K_crop = K.clone()
+    K_crop[0, 2] -= 208.0
+    K_crop[1, 2] -= 128.0
+    frame = torch.tensor(np.asarray(scene["depth"], np.float32), device=dev)
+    noisy = torch.tensor(noisy_depth(scene["hw"], 5), device=dev)
+    cases = [("register_480x640", frame, K),
+             ("track_precrop_224x224", frame[128:352, 208:432].contiguous(), K_crop),
+             ("halo_row_block_128x640", noisy[slice(*DEPTH_HALO_ROWS)].contiguous(), None),
+             ("holes_out_of_range_480x640", noisy, K)]
+    rows = []
+    for name, d, K_ in cases:
+        before = depth_cuda.LAUNCHES["K2"]
+        out, xyz = depth_cuda.preprocess(d, K_)
+        again, xyz_again = depth_cuda.preprocess(d, K_)
+        torch.cuda.synchronize()
+        if depth_cuda.LAUNCHES["K2"] - before != 2:
+            fail(f"K2 {name}: {depth_cuda.LAUNCHES['K2'] - before} launches for 2 calls")
+        ref, ref_xyz = depth_cuda.plain_preprocess(d, K_)
+        row = {"case": name, "shape": list(d.shape), "xyz": K_ is not None,
+               "valid_in": int(((d >= 0.001) & (d < 100)).sum()), "valid_out": int((ref > 0).sum()),
+               "depth": compare_depth_outputs(torch, out, ref),
+               "deterministic": bool(torch.equal(out, again))}
+        if K_ is None:
+            if xyz is not None:
+                fail(f"K2 {name}: an xyz map without intrinsics")
+        else:
+            row["xyz_map"] = compare_depth_outputs(torch, xyz, ref_xyz)
+            row["deterministic"] &= bool(torch.equal(xyz, xyz_again))
+        rows.append(row)
+        for part in ("depth", "xyz_map"):
+            if part in row and (row[part]["elements_differ"] or row[part]["zero_flips"]):
+                FAILURES.append(f"K2 {name}: {part} is not the plain composition's bit for bit: "
+                                f"{row[part]}")
+        if not row["deterministic"]:
+            FAILURES.append(f"K2 {name}: two calls gave different bits")
+
+    from foundationpose_tpu_torch.ops.raster_bounds import k2_bound
+
+    times = []
+    for name, d, K_ in cases[:2]:
+        H, W = d.shape
+        call = lambda: depth_cuda.preprocess(d, K_)
+        plain = lambda: depth_cuda.plain_preprocess(d, K_)
+        p1, c1, c2, p2 = (event_ms(plain, 20), event_ms(call, 200), event_ms(call, 200),
+                          event_ms(plain, 20))
+        dev_ms = device_ms(call, 100, ("depth_preprocess_kernel",))["depth_preprocess_kernel"]
+        b = k2_bound(H, W)
+        times.append({"case": name, "ms": min(c1, c2), "ms_runs": [c1, c2], "device_ms": dev_ms,
+                      "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+                      **{k: b[k] for k in ("bound_ms", "bound_by", "bound_bytes_ms",
+                                           "bound_operations_ms")},
+                      "share_of_bound": None if not dev_ms else b["bound_ms"] / dev_ms})
+    say("depth_kernel", cases=rows, times=times, gate="bit for bit, no zero / non-zero flip",
+        card=smi)
+    return {"cases": rows, "times": times}
+
+
 def check_pose(name, pose, gt, mesh, diameter, metrics, gate=ADDS_GATE):
     if pose.shape != (4, 4) or not np.isfinite(pose).all():
         fail(f"{name}: pose is not a finite (4,4) matrix")
@@ -593,21 +693,51 @@ def check_pose(name, pose, gt, mesh, diameter, metrics, gate=ADDS_GATE):
             "add_mm": add * 1000, "add_of_diameter": add / diameter}
 
 
+def launch_counts(raster_cuda):
+    """Every card kernel's launch count: K1s and K1r, and K2."""
+    from foundationpose_tpu_torch.ops import depth_cuda
+
+    return {**raster_cuda.LAUNCHES, **depth_cuda.LAUNCHES}
+
+
 def reset_launches(raster_cuda):
-    for k in raster_cuda.LAUNCHES:
-        raster_cuda.LAUNCHES[k] = 0
+    from foundationpose_tpu_torch.ops import depth_cuda
+
+    for counts in (raster_cuda.LAUNCHES, depth_cuda.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
-def expect_launches(raster_cuda, before, n, what):
-    """Both kernels must have been launched ``n`` times since ``before``
-    (``n=None``: as often as each other, and at least once)."""
-    got = {k: n_now - before[k] for k, n_now in raster_cuda.LAUNCHES.items()}
+def hold_k2(counts, n, what):
+    """K2 runs once per depth frame preprocessed: ``counts`` must hold ``n``
+    of it (a miscount is reported with the other failures at the end)."""
+    if counts["K2"] != n:
+        FAILURES.append(f"{what} launched K2 {counts['K2']} times, expected {n}")
+
+
+def expect_launches(raster_cuda, before, n, what, k2=None):
+    """K1s and K1r must have been launched ``n`` times each since ``before``
+    (``n=None``: as often as each other, and at least once), and K2 ``k2``
+    times (None: not held). Returns the three kernels' counts."""
+    got = {k: n_now - before[k] for k, n_now in launch_counts(raster_cuda).items()}
+    k1 = [got[k] for k in raster_cuda.LAUNCHES]
     if n is None:
-        if len(set(got.values())) != 1 or min(got.values()) < 1:
-            fail(f"{what} launched {got}, expected both kernels equally often, at least once")
-    elif any(v != n for v in got.values()):
-        fail(f"{what} launched {got}, expected {n} of each kernel")
+        if len(set(k1)) != 1 or min(k1) < 1:
+            fail(f"{what} launched {got}, expected K1s and K1r equally often, at least once")
+    elif any(v != n for v in k1):
+        fail(f"{what} launched {got}, expected {n} of K1s and of K1r")
+    if k2 is not None:
+        hold_k2(got, k2, what)
     return got
+
+
+def harness_frames(res):
+    """The depth frames the accuracy harness's result says it preprocessed:
+    one per ``register`` trial and one per frame of a tracked trajectory."""
+    return sum(len(sc["adds"]) for m in res["modes"].values()
+               for block in m["register"].values() for sc in block.get("scenes", {}).values()) \
+        + sum(sc["n_frames"] for m in res["modes"].values()
+              for sc in m.get("track", {}).get("scenes", {}).values())
 
 
 def timed(torch, fn):
@@ -618,12 +748,14 @@ def timed(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def drive_counted(raster_cuda, torch, fn, n, what):
-    """Run ``fn`` with both kernels' launch counts set to 0 just before and
-    read just after; both must then stand at ``n``. Returns (result, ms, counts)."""
+def drive_counted(raster_cuda, torch, fn, n, what, k2=None):
+    """Run ``fn`` with the kernels' launch counts set to 0 just before and
+    read just after; K1s and K1r must then stand at ``n``, K2 at ``k2``.
+    Returns (result, ms, counts)."""
     reset_launches(raster_cuda)
     out, ms = timed(torch, fn)
-    counts = expect_launches(raster_cuda, dict.fromkeys(raster_cuda.LAUNCHES, 0), n, what)
+    counts = expect_launches(raster_cuda, dict.fromkeys(launch_counts(raster_cuda), 0), n, what,
+                             k2)
     PER_CALL[re.sub(r" frame \d+", "", what)] = counts
     return out, ms, counts
 
@@ -647,7 +779,7 @@ def run_funnel(torch, demo, metrics, raster_cuda, scene, big, big_args, full_war
     # 1 coarse refine + 2 for the coarse hybrid score, 4 fine + 2, 2 polish + 2
     what = "funnel register (1 + 2 coarse, 4 + 2 fine, 2 + 2 polish render calls)"
     pose, first_ms, counts = drive_counted(
-        raster_cuda, torch, lambda: est.register(*reg_args), 13, what)
+        raster_cuda, torch, lambda: est.register(*reg_args), 13, what, k2=1)
     err = check_pose("register_funnel", pose, scene["gt"], scene["mesh"], est.diameter, metrics)
     pose2, warm_ms = timed(torch, lambda: est.register(*reg_args))
     check_pose("register_funnel (warm repeat)", pose2, scene["gt"], scene["mesh"],
@@ -661,7 +793,8 @@ def run_funnel(torch, demo, metrics, raster_cuda, scene, big, big_args, full_war
     if not f_coarse < f_full:
         fail(f"funnel_coarse_faces gave no smaller mesh: {f_coarse} vs {f_full} faces")
     pose_big, big_first_ms, big_counts = drive_counted(
-        raster_cuda, torch, lambda: est_big.register(*big_args), 13, what + ", 4096-face mesh")
+        raster_cuda, torch, lambda: est_big.register(*big_args), 13, what + ", 4096-face mesh",
+        k2=1)
     pose_big2, big_warm_ms = timed(torch, lambda: est_big.register(*big_args))
     for p_ in (pose_big, pose_big2):
         if p_.shape != (4, 4) or not np.isfinite(p_).all():
@@ -692,7 +825,7 @@ def run_geometric(torch, demo, metrics, raster_cuda, scene, frames_in, smi):
     reg_args = (scene["K"], scene["rgb"], scene["depth"], scene["mask"])
     pose, first_ms, counts = drive_counted(
         raster_cuda, torch, lambda: est.register(*reg_args), 20,
-        "geometric register (10 + 1 + 8 + 1 render calls)")
+        "geometric register (10 + 1 + 8 + 1 render calls)", k2=1)
     err = check_pose("register_geometric", pose, scene["gt"], scene["mesh"], est.diameter,
                      metrics, ADDS_GATE_GEOMETRIC)
     chain = est.pose_last.copy()
@@ -708,7 +841,7 @@ def run_geometric(torch, demo, metrics, raster_cuda, scene, frames_in, smi):
     for f, (gt_f, rgb_f, depth_f) in enumerate(frames_in):
         pose_f, ms, n = drive_counted(
             raster_cuda, torch, lambda: est.track_one(rgb_f, depth_f, scene["K"]), 3,
-            f"geometric track frame {f} (2 + 1 render calls)")
+            f"geometric track frame {f} (2 + 1 render calls)", k2=1)
         err_f = check_pose(f"track_geometric frame {f}", pose_f, gt_f, scene["mesh"],
                            est.diameter, metrics, ADDS_GATE_GEOMETRIC)
         frames.append({"frame": f, "ms": ms, "launches": n, **err_f})
@@ -847,7 +980,7 @@ def run_multi(torch, demo, metrics, raster, raster_cuda, scene, smi):
     shapes = compare_multi_shapes(torch, raster, raster_cuda, tracker, meshes, names, Ks)
     out, first_ms, counts = drive_counted(
         raster_cuda, torch, lambda: tracker.track(rgbs, depths, Ks, iteration=2), 8,
-        "multi-object step (4 objects x 2 iterations)")
+        "multi-object step (4 objects x 2 iterations)", k2=len(meshes))
     tracker.set_poses(start)
     out2, warm_ms = timed(torch, lambda: tracker.track(rgbs, depths, Ks, iteration=2))
     # ---- the same step on the card through the plain rasterizer: no launch,
@@ -864,7 +997,7 @@ def run_multi(torch, demo, metrics, raster, raster_cuda, scene, smi):
         trk.set_poses(start)
         if not plain:
             return trk.track(rgbs, depths, Ks, iteration=2)
-        before = dict(raster_cuda.LAUNCHES)
+        before = launch_counts(raster_cuda)
         with plain_rasterizer(raster, raster_cuda):
             poses = trk.track(rgbs, depths, Ks, iteration=2)
         expect_launches(raster_cuda, before, 0, "multi-object step through the plain rasterizer")
@@ -949,8 +1082,8 @@ def run_streaming(torch, metrics, raster_cuda, est, chain, scene, frames_in, smi
     synced, sync_ms, t_all = run(True)
     last_synced = est.pose_last.copy()
     sync_total_ms = (time.perf_counter() - t_all) * 1e3
-    sync_counts = expect_launches(raster_cuda, dict.fromkeys(raster_cuda.LAUNCHES, 0),
-                                  4 * len(frames_in), "tracking, sync=True")
+    sync_counts = expect_launches(raster_cuda, dict.fromkeys(launch_counts(raster_cuda), 0),
+                                  4 * len(frames_in), "tracking, sync=True", len(frames_in))
 
     before_mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
@@ -961,8 +1094,8 @@ def run_streaming(torch, metrics, raster_cuda, est, chain, scene, frames_in, smi
         torch.cuda.set_sync_debug_mode(before_mode)
     last_streamed = est.pose_last.copy()  # waits for the chain
     stream_total_ms = (time.perf_counter() - t_all) * 1e3
-    counts = expect_launches(raster_cuda, dict.fromkeys(raster_cuda.LAUNCHES, 0),
-                             4 * len(frames_in), "tracking, sync=False")
+    counts = expect_launches(raster_cuda, dict.fromkeys(launch_counts(raster_cuda), 0),
+                             4 * len(frames_in), "tracking, sync=False", len(frames_in))
     # ---- the same proof from the profiler's record of CUDA runtime calls made
     # while two more frames are enqueued: none may be a synchronise or a
     # blocking copy (the profiler sees every runtime call, whoever makes it)
@@ -1144,7 +1277,7 @@ def run_evalsuite(torch, metrics, raster, raster_cuda, smi):
 
     renders = []
     for spec in scenes.build_suite():
-        before = dict(raster_cuda.LAUNCHES)
+        before = launch_counts(raster_cuda)
         with plain_rasterizer(raster, raster_cuda):
             rp = scenes.SceneRenderer(spec, device="cuda")
             gt = rp.register_poses()[0]
@@ -1190,6 +1323,7 @@ def run_evalsuite(torch, metrics, raster, raster_cuda, smi):
             None, "evalsuite harness, 4 scenes x (geometric + learned_hybrid)")
     finally:
         harness._track_block, scenes.build_suite = real_block, real_suite
+    hold_k2(counts, harness_frames(res), "evalsuite harness")
     specs = {sp.name: sp for sp in real_suite() if sp.name in EVAL_SCENES}
     diam = {n: centred_diameter(meshio, sp.mesh) for n, sp in specs.items()}
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "ACCURACY_r05.json")) as f:
@@ -1365,7 +1499,7 @@ def run_io_apps(torch, demo, metrics, raster, raster_cuda, smi):
         summary, ms, counts = drive_counted(
             raster_cuda, torch, lambda: eval_bop.evaluate_scene(
                 get_bop_reader(scene_dir), 1, mode="geometric", track=True, device="cuda"),
-            20 + 3 * 2, "eval_bop.evaluate_scene (geometric, track)")
+            20 + 3 * 2, "eval_bop.evaluate_scene (geometric, track)", k2=3)
         paths["eval_bop.evaluate_scene geometric + track"] = counts
         if summary["n_frames"] != 3:
             fail(f"eval_bop scored {summary['n_frames']} of 3 frames")
@@ -1385,6 +1519,7 @@ def run_io_apps(torch, demo, metrics, raster, raster_cuda, smi):
                     device="cuda"),
                 20 + 5 * 5, f"run_track.track_video stream={stream}")
             paths[f"run_track.track_video stream={stream}"] = counts
+            hold_k2(counts, len(res), f"run_track.track_video stream={stream} (one per frame)")
             out[stream] = res
             gate_rows[f"run_track stream={stream}"] = {
                 "ms": ms, "launches": counts, "adds_mm": [r["adds"] * 1000 for r in res],
@@ -1406,16 +1541,17 @@ def run_io_apps(torch, demo, metrics, raster, raster_cuda, smi):
                 "--mesh", os.path.join(video, "mesh.ply"),
                 "--mask", os.path.join(video, "masks", "0000.png")]
         canvas = (5 * S + 4 * 5, 2 * S + 2, 3)
-        for debug, n, files in (
-                (None, 20, {"vis.png": hw + (3,), "vis_register.png": hw + (3,)}),
-                (3, 20 + 1 + 2 * 10, {"vis.png": hw + (3,), "vis_register.png": hw + (3,),
-                                      "vis_score_top.png": canvas,
-                                      **{f"vis_refine_iter_{i:02d}.png": canvas
-                                         for i in range(10)}})):
+        # K2: register's frame, and at --debug 3 the frame the replayed refinement reads
+        for debug, n, k2, files in (
+                (None, 20, 1, {"vis.png": hw + (3,), "vis_register.png": hw + (3,)}),
+                (3, 20 + 1 + 2 * 10, 2, {"vis.png": hw + (3,), "vis_register.png": hw + (3,),
+                                         "vis_score_top.png": canvas,
+                                         **{f"vis_refine_iter_{i:02d}.png": canvas
+                                            for i in range(10)}})):
             d = os.path.join(tmp, f"pose_out_debug{debug or 1}")
             argv = base + ["--out-dir", d] + ([] if debug is None else ["--debug", str(debug)])
             pose, ms, counts = drive_counted(raster_cuda, torch, lambda: run_pose.main(argv), n,
-                                             f"run_pose.main --debug {debug or 1}")
+                                             f"run_pose.main --debug {debug or 1}", k2=k2)
             paths[f"run_pose.main --debug {debug or 1}"] = counts
             err = check_pose(f"run_pose --debug {debug or 1}", pose, gts[0], target, diameter,
                              metrics)
@@ -1439,7 +1575,7 @@ def run_io_apps(torch, demo, metrics, raster, raster_cuda, smi):
         est = demo.build_estimator(target, device="cuda", mode="geometric")
         pose, ms, counts = drive_counted(
             raster_cuda, torch, lambda: est.register(reader.K, rgb1, depth1, mask), 20,
-            "depth_box_fallback mask -> geometric register")
+            "depth_box_fallback mask -> geometric register", k2=1)
         paths["depth_box_fallback + register"] = counts
         gate_rows["depth_box_fallback"] = {"iou_with_true_mask": iou, "ms": ms, "launches": counts,
                                            **check_pose("depth_box_fallback register", pose,
@@ -1572,7 +1708,7 @@ def run_train(torch, raster, raster_cuda, scene, smi):
     step_rows = {}
     for kind in ("refiner", "scorer"):
         data_k, loss_k = one_step(kind, plain=False)
-        before = dict(raster_cuda.LAUNCHES)
+        before = launch_counts(raster_cuda)
         with plain_rasterizer(raster, raster_cuda):
             data_p, loss_p = one_step(kind, plain=True)
         expect_launches(raster_cuda, before, 0, f"{kind} step through the plain rasterizer")
@@ -1593,11 +1729,13 @@ def run_train(torch, raster, raster_cuda, scene, smi):
     (net_r, stats_r), ms_r, counts_r = drive_counted(
         raster_cuda, torch, lambda: agnostic.train_agnostic_refiner(
             prepped, K_TRAIN, steps=TRAIN_STEPS, batch=TRAIN_BATCH["refiner"], input_size=S,
-            chunk=TRAIN_CHUNK), n, f"train_agnostic_refiner ({TRAIN_STEPS} steps x 3 render calls)")
+            chunk=TRAIN_CHUNK), n, f"train_agnostic_refiner ({TRAIN_STEPS} steps x 3 render calls)",
+        k2=0)
     (net_s, stats_s), ms_s, counts_s = drive_counted(
         raster_cuda, torch, lambda: agnostic.train_agnostic_scorer(
             prepped, K_TRAIN, steps=TRAIN_STEPS, n_hyp=TRAIN_BATCH["scorer"], input_size=S,
-            chunk=TRAIN_CHUNK), n, f"train_agnostic_scorer ({TRAIN_STEPS} steps x 3 render calls)")
+            chunk=TRAIN_CHUNK), n, f"train_agnostic_scorer ({TRAIN_STEPS} steps x 3 render calls)",
+        k2=0)
     trainers = {}
     for kind, stats, ms, counts in (("refiner", stats_r, ms_r, counts_r),
                                     ("scorer", stats_s, ms_s, counts_s)):
@@ -1619,13 +1757,13 @@ def run_train(torch, raster, raster_cuda, scene, smi):
         snap = os.path.join(tmp, "resume_refiner.pt")
         kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH["refiner"], input_size=S,
                   chunk=TRAIN_CHUNK, resume_path=snap, ckpt_every=TRAIN_CHUNK)
-        before = dict(raster_cuda.LAUNCHES)
+        before = launch_counts(raster_cuda)
         _, cut = agnostic.train_agnostic_refiner(prepped, K_TRAIN, stop_after=2, **kw)
         at_cut = torch.load(snap, map_location="cpu", weights_only=True)
         _, resumed = agnostic.train_agnostic_refiner(prepped, K_TRAIN, stop_after=1, **kw)
         after = torch.load(snap, map_location="cpu", weights_only=True)
         add_counts(total, expect_launches(raster_cuda, before, 3 * 3 * TRAIN_CHUNK,
-                                          "cut and resumed refiner run"))
+                                          "cut and resumed refiner run", k2=0))
     resume = {"done_at_cut": at_cut["done"], "count_at_cut": int(at_cut["opt"]["count"]),
               "done_after_resume": after["done"], "count_after_resume": int(after["opt"]["count"]),
               "steps_run_after_resume": resumed["steps"], "chunk_means_before_cut": cut["chunk_means"],
@@ -1647,7 +1785,7 @@ def run_train(torch, raster, raster_cuda, scene, smi):
     reg_args = (scene["K"], scene["rgb"], scene["depth"], scene["mask"])
     pose, reg_ms, reg_counts = drive_counted(
         raster_cuda, torch, lambda: est.register(*reg_args), 11,
-        "register with the freshly trained checkpoint (5 + 2 + 2 + 2 render calls)")
+        "register with the freshly trained checkpoint (5 + 2 + 2 + 2 render calls)", k2=1)
     if pose.shape != (4, 4) or not np.isfinite(pose).all():
         fail("train: register with the freshly trained checkpoint gave no finite pose")
     serve = {"first_call_ms": reg_ms, "launches": reg_counts, "net_dtype": refiner.cfg.dtype,
@@ -1668,6 +1806,7 @@ def run_train(torch, raster, raster_cuda, scene, smi):
             None, "evalsuite harness, learned fallback (per-scene training)")
     finally:
         scenes.build_suite = real_suite
+    hold_k2(h_counts, harness_frames(res), "evalsuite harness, learned fallback")
     add_counts(total, h_counts)
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "ACCURACY_r04.json")) as f:
         ref = json.load(f)["modes"]["learned"]
@@ -1843,8 +1982,8 @@ def run_field_phase(torch, demo, raster, raster_cuda, smi):
             ["--data-dir", video, "--save-dir", out_dir, "--n-step", str(FIELD_N_STEP),
              "--device", "cuda"]))
         bake_calls = bake_render_calls(texture, len(mesh_r.faces), hw)
-        bake_launches = expect_launches(raster_cuda, dict.fromkeys(raster_cuda.LAUNCHES, 0),
-                                        bake_calls, "run_field (texture bake render calls)")
+        bake_launches = expect_launches(raster_cuda, dict.fromkeys(launch_counts(raster_cuda), 0),
+                                        bake_calls, "run_field (texture bake render calls)", k2=0)
         PER_CALL["run_field: texture bake (one per render call)"] = bake_launches
         artifacts = sorted(os.listdir(out_dir))
     cfg = runner.cfg
@@ -1920,7 +2059,7 @@ def run_field_phase(torch, demo, raster, raster_cuda, smi):
         raster_cuda, torch, lambda: texture.bake_texture(mesh, images, masks, cams, K,
                                                          tex_res=1024, device="cuda"),
         bake_render_calls(texture, len(mesh.faces), hw),
-        "texture bake of the true mesh (one launch per render call)")
+        "texture bake of the true mesh (one launch per render call)", k2=0)
     gt_err, gt_px = colour_err(gt_bake, ob_in_cams[FIELD_VIEW])
     rec_err, rec_px = colour_err(mesh_r, np.linalg.inv(opt_poses[FIELD_VIEW]))
     if not gt_err < BAKE_COLOUR_GATE:
@@ -1983,8 +2122,7 @@ def run_field_phase(torch, demo, raster, raster_cuda, smi):
              f"bake re-rendered within {BAKE_COLOUR_GATE} mean colour error; hash losses "
              "finite and falling",
         card=smi)
-    return ({"K1s": bake_launches["K1s"] + gt_counts["K1s"],
-             "K1r": bake_launches["K1r"] + gt_counts["K1r"]},
+    return (add_counts(add_counts({}, bake_launches), gt_counts),
             {"setup": srow, "raster": krow, "time": bake_time}, views)
 
 
@@ -2085,10 +2223,10 @@ def run_slam_phase(torch, demo, raster, raster_cuda, smi):
         snapshot("bootstrap depth-map mesh")
         for f in range(1, SLAM_FRAMES):
             n_kf, retrain_ms = len(tracker.keyframes), timer.ms.get("retrain", 0.0)
-            before = dict(raster_cuda.LAUNCHES)
+            before = launch_counts(raster_cuda)
             _, ms = timed(torch, lambda: tracker.step(rgbs[f], depths[f], mask=masks[f]))
             n = expect_launches(raster_cuda, before, n_iter,
-                                f"slam step frame {f} ({n_iter} ICP render calls)")
+                                f"slam step frame {f} ({n_iter} ICP render calls)", k2=1)
             est = tracker.cam_in_ob
             row = {"frame": f, "ms": ms, "launches": n,
                    "keyframe": len(tracker.keyframes) > n_kf,
@@ -2116,10 +2254,10 @@ def run_slam_phase(torch, demo, raster, raster_cuda, smi):
             kf["cam_in_ob"] = c.copy()
         ba_problem = ba_mod.build_ba_problem(depths[kf_frames], masks[kf_frames], cams_noisy, K,
                                              n_landmarks=SLAM_BA["n_landmarks"])
-        before = dict(raster_cuda.LAUNCHES)
+        before = launch_counts(raster_cuda)
         ba_before = timer.ms
         cost, ba_ms = timed(torch, lambda: tracker.run_pose_graph_ba(**SLAM_BA))
-        expect_launches(raster_cuda, before, 0, "run_pose_graph_ba (renders nothing)")
+        expect_launches(raster_cuda, before, 0, "run_pose_graph_ba (renders nothing)", k2=0)
         refined = np.stack([kf["cam_in_ob"] for kf in tracker.keyframes])
 
         def errs(cams):
@@ -2135,14 +2273,15 @@ def run_slam_phase(torch, demo, raster, raster_cuda, smi):
 
         # ---- final field, texture bake through K1
         n_kf = len(tracker.keyframes)
-        before = dict(raster_cuda.LAUNCHES)
+        before = launch_counts(raster_cuda)
         (textured, optimized), fin_ms = timed(torch, lambda: tracker.finalize(bake=True,
                                                                                tex_res=1024))
         calls = -(-n_kf // texture._views_per_call(len(textured.faces), hw, texture.BINS_BUDGET))
         bake_launches = expect_launches(raster_cuda, before, calls,
-                                        "finalize (texture bake render calls)")
+                                        "finalize (texture bake render calls)", k2=0)
         PER_CALL["ModelFreeTracker.finalize: texture bake (one per render call)"] = bake_launches
-        path_launches = dict(raster_cuda.LAUNCHES)  # read just after the path
+        path_launches = launch_counts(raster_cuda)  # read just after the path
+        hold_k2(path_launches, len(steps), "ModelFreeTracker path (init preprocesses no frame)")
     finally:
         for u in undo:
             u()
@@ -2310,7 +2449,7 @@ def md_register(torch, demo, raster, raster_cuda, multihost, mesh, scene, out, r
             reset_launches(raster_cuda)
             pose, ms = timed(torch, lambda: est.register(*args))
             tag = f"{kind}_{dtype}"
-            out[f"{tag}_launches"] = dict(raster_cuda.LAUNCHES)
+            out[f"{tag}_launches"] = launch_counts(raster_cuda)
             out[f"{tag}_ms"] = ms
             res.update({f"{tag}_pose": pose, f"{tag}_poses": est.poses,
                         f"{tag}_scores": est.scores, f"{tag}_order": est.hyp_order})
@@ -2413,10 +2552,10 @@ def md_dp_refiner(torch, raster, raster_cuda, mesh, out, res):
 
     reset_launches(raster_cuda)
     l1, g1, _, _ = run(None)
-    out["dp_one_launches"] = dict(raster_cuda.LAUNCHES)
+    out["dp_one_launches"] = launch_counts(raster_cuda)
     reset_launches(raster_cuda)
     l2, g2, net, opt = run(mesh)
-    out["dp_sharded_launches"] = dict(raster_cuda.LAUNCHES)
+    out["dp_sharded_launches"] = launch_counts(raster_cuda)
     # step 1's gradient once more in this process alone at the sharded batch
     # size: the sum over the world's slices of the unsharded batch of each
     # slice's gradient. The sharded gradient differs from it only by the
@@ -2536,7 +2675,7 @@ def md_multi(torch, demo, raster, raster_cuda, mesh, scene, out, res):
         tracker.set_poses(start)
         reset_launches(raster_cuda)
         poses, ms = timed(torch, lambda: tracker.track(rgbs, depths, Ks, iteration=2))
-        out[f"multi_{kind}_launches"] = dict(raster_cuda.LAUNCHES)
+        out[f"multi_{kind}_launches"] = launch_counts(raster_cuda)
         out[f"multi_{kind}_ms"] = ms
         res[f"multi_{kind}_poses"] = poses
     mine = tracker.mine
@@ -2726,8 +2865,9 @@ def md_gates(i, x, world, backend):
     for dtype in ("float32", "bfloat16"):
         if not np.isfinite(x[f"sharded_{dtype}_scores"]).all():
             bad.append(f"register {dtype}: non-finite scores")
-        if set(i[f"sharded_{dtype}_launches"].values()) != {11}:
-            bad.append(f"register {dtype}: {i[f'sharded_{dtype}_launches']} launches, not 11")
+        if i[f"sharded_{dtype}_launches"] != {"K1s": 11, "K1r": 11, "K2": 1}:
+            bad.append(f"register {dtype}: {i[f'sharded_{dtype}_launches']} launches, not 11 "
+                       "of K1s and K1r and 1 of K2 (its rows)")
     ds, dp, _ = ranked_diff(x["sharded_float32_scores"], x["sharded_float32_poses"],
                             x["one_float32_scores"], x["one_float32_poses"], MD_REGISTER_TOL)
     dpose = float(np.abs(x["sharded_float32_pose"] - x["one_float32_pose"]).max())
@@ -2749,10 +2889,10 @@ def md_gates(i, x, world, backend):
             or not np.isfinite(dp_["losses_sharded"]).all()):
         bad.append(f"DP refiner step: {dp_}")
     n_dp = 3 * MD_DP_STEPS
-    if set(i["dp_one_launches"].values()) != {n_dp} or set(
-            i["dp_sharded_launches"].values()) != {n_dp}:
+    if not i["dp_one_launches"] == i["dp_sharded_launches"] == {"K1s": n_dp, "K1r": n_dp,
+                                                                 "K2": 0}:
         bad.append(f"DP refiner step launches {i['dp_one_launches']} / "
-                   f"{i['dp_sharded_launches']}, not {n_dp}")
+                   f"{i['dp_sharded_launches']}, not {n_dp} of K1s and K1r and no K2")
     for enc, row in i.get("field", {}).items():
         for st in row["steps"]:
             if (st["loss_rel_diff"] > MD_LOSS_RTOL or not np.isfinite(st["loss_sharded"])
@@ -2763,10 +2903,11 @@ def md_gates(i, x, world, backend):
             or float(np.abs(x["multi_sharded_poses"] - x["multi_one_poses"]).max())
             > MD_MULTI_BATCH_TOL):
         bad.append("multi-object: sharded poses differ")
-    if set(i["multi_one_launches"].values()) != {8} or set(
-            i["multi_sharded_launches"].values()) != {8 // world}:
+    if i["multi_one_launches"] != {"K1s": 8, "K1r": 8, "K2": 4} or i["multi_sharded_launches"] \
+            != {"K1s": 8 // world, "K1r": 8 // world, "K2": 4 // world}:
         bad.append(f"multi-object launches {i['multi_one_launches']} / "
-                   f"{i['multi_sharded_launches']}, not 8 / {8 // world}")
+                   f"{i['multi_sharded_launches']}, not 8 / {8 // world} of K1s and K1r and "
+                   f"4 / {4 // world} of K2 (one per object)")
     for row in i["scaling"].values():
         for v in row.values():
             if not (np.isfinite(list(v.values())).all() and min(v.values()) > 0):
@@ -2921,8 +3062,8 @@ def run_surface_phase(torch, raster_cuda, k1_parts, smi):
         reset_launches(raster_cuda)
         err = demo.main(["--out-dir", tmp, "--frames", "1"])
         # scene + frame renders (1 + 1), register (11), one tracked frame (4)
-        launches = expect_launches(raster_cuda, dict.fromkeys(raster_cuda.LAUNCHES, 0), 17,
-                                   "demo_synthetic --out-dir, 1 frame")
+        launches = expect_launches(raster_cuda, dict.fromkeys(launch_counts(raster_cuda), 0), 17,
+                                   "demo_synthetic --out-dir, 1 frame", k2=2)
         demo_s = time.perf_counter() - t0
         missing = [f for f in demo.ARTEFACTS if not os.path.isfile(os.path.join(tmp, f))]
         if missing:
@@ -3019,7 +3160,7 @@ def main():
 
     from foundationpose_tpu_torch.apps import demo_synthetic as demo
     from foundationpose_tpu_torch.core import metrics
-    from foundationpose_tpu_torch.ops import raster, raster_cuda
+    from foundationpose_tpu_torch.ops import depth_cuda, raster, raster_cuda
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -3039,12 +3180,13 @@ def main():
                             "native.build()"], cwd=os.path.dirname(os.path.abspath(__file__)))
     # K1s, K1r and their parts (the surface phase times them): every nvcc at once
     k1_parts = profile_raster.build_parts(raster_cuda.BUILD_LOG)
+    depth_cuda.build()  # K2, into raster_cuda.BUILD_LOG too
     nvcc_s = time.perf_counter() - t0
     if gxx.wait() != 0:
         fail("the host library native/cluster.cpp did not build (is g++ installed?)")
     native.build()
     sources = {k: os.path.relpath(src, os.path.dirname(os.path.abspath(__file__)))
-               for k, (src, _) in raster_cuda.SOURCES.items()}
+               for k, (src, _) in raster_cuda.LIBRARIES.items()}
     say("build", kernels=sources, seconds=time.perf_counter() - t0,
         host_library={"source": os.path.relpath(native.SOURCE, os.path.dirname(
             os.path.abspath(__file__))), "compiler": shutil.which("g++"), "flags": native.FLAGS},
@@ -3056,6 +3198,7 @@ def main():
     k1 = check_kernels(scene, torch)
     suite_k = check_suite_kernels(torch, raster, raster_cuda)
     say("kernels", suite_full_frames=suite_k, gate=COMPARE_GATE + "; K1s: " + SETUP_GATE)
+    k2 = run_depth_kernel(torch, depth_cuda, scene, smi)
 
     # ---- main path: register, then track, launches counted from zero
     est = demo.build_estimator(scene["mesh"], device="cuda")
@@ -3066,24 +3209,25 @@ def main():
              f"{est.refiner.cfg.input_size} px")
     reg_args = (scene["K"], scene["rgb"], scene["depth"], scene["mask"])
     reset_launches(raster_cuda)
-    zero = dict(raster_cuda.LAUNCHES)
+    zero = launch_counts(raster_cuda)
     torch.cuda.reset_peak_memory_stats()
     pose, first_ms = timed(torch, lambda: est.register(*reg_args))
-    reg_launches = expect_launches(raster_cuda, zero, 11, "register (5 + 2 + 2 + 2 render calls)")
+    reg_launches = expect_launches(raster_cuda, zero, 11, "register (5 + 2 + 2 + 2 render calls)",
+                                   k2=1)
     PER_CALL["register (5 + 2 + 2 + 2 render calls)"] = reg_launches
     reg_err = check_pose("register", pose, scene["gt"], scene["mesh"], est.diameter, metrics)
     reg_chain = est.pose_last.copy()  # centred-mesh pose the streaming phase restarts from
 
     frames = []
     for f, (gt_f, rgb_f, depth_f) in enumerate(frames_in):
-        before = dict(raster_cuda.LAUNCHES)
+        before = launch_counts(raster_cuda)
         pose_f, ms = timed(torch, lambda: est.track_one(rgb_f, depth_f, scene["K"]))
-        n = expect_launches(raster_cuda, before, 4, f"track frame {f} (2 + 2 render calls)")
+        n = expect_launches(raster_cuda, before, 4, f"track frame {f} (2 + 2 render calls)", k2=1)
         PER_CALL["track_one (2 + 2 render calls)"] = n
         err = check_pose(f"track frame {f}", pose_f, gt_f, scene["mesh"], est.diameter, metrics)
         frames.append({"frame": f, "ms": ms, "launches": n, **err})
-    main_path_launches = dict(raster_cuda.LAUNCHES)  # read just after the main path
-    expect_launches(raster_cuda, zero, 11 + 4 * TRACK_FRAMES, "main path")
+    main_path_launches = launch_counts(raster_cuda)  # read just after the main path
+    expect_launches(raster_cuda, zero, 11 + 4 * TRACK_FRAMES, "main path", k2=1 + TRACK_FRAMES)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
     # warm repeat of register, for timing only (not part of the launch count)
@@ -3112,9 +3256,10 @@ def main():
         raster.make_mesh_tensors(big, device="cuda"), scene["gt"], scene["K"], scene["hw"])
     est_big = demo.build_estimator(big, device="cuda")
     big_args = (scene["K"], big_rgb, big_depth, big_mask)
-    before = dict(raster_cuda.LAUNCHES)
+    before = launch_counts(raster_cuda)
     pose_big, big_first_ms = timed(torch, lambda: est_big.register(*big_args))
-    big_launches = expect_launches(raster_cuda, before, 11, "register on the 4096-face mesh")
+    big_launches = expect_launches(raster_cuda, before, 11, "register on the 4096-face mesh",
+                                   k2=1)
     pose_big2, big_warm_ms = timed(torch, lambda: est_big.register(*big_args))
     for p_ in (pose_big, pose_big2):
         if p_.shape != (4, 4) or not np.isfinite(p_).all():
@@ -3247,6 +3392,21 @@ def main():
                                "K1r_device_ms", "plain_ms", "bound_ms", "bound_by")}
             | {"K1s_bound_ms": c["K1s_bound"]["bound_ms"], "K1r_bound_ms": c["K1r_bound"]["bound_ms"]}
             for c in suite_k["times_full_frame"]], **common,
+    }, {
+        "name": "K2 depth preprocess (erode, bilateral filter, xyz map)",
+        "source": sources["K2"],
+        "replaces": "none: the XLA stencils foundationpose_tpu/ops/image.py::erode_depth, "
+                    "::bilateral_filter_depth and core/geometry.py::depth2xyzmap",
+        "launches": all_launches["K2"],
+        "launches_by_path": {k: v["K2"] for k, v in by_path.items()},
+        "launches_per_call": {k: v["K2"] for k, v in PER_CALL.items()},
+        "cases": k2["cases"], "times": k2["times"],
+        "max_abs_err": max(r[part]["max_abs_err"] for r in k2["cases"]
+                           for part in ("depth", "xyz_map") if part in r),
+        "tolerance": "bit for bit, no zero / non-zero flip",
+        "ms": k2["times"][0]["ms"], "device_ms": k2["times"][0]["device_ms"],
+        "plain_ms": k2["times"][0]["plain_ms"], "bound_ms": k2["times"][0]["bound_ms"],
+        "bound_by": k2["times"][0]["bound_by"], **common, "shape": k2["cases"][0]["case"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

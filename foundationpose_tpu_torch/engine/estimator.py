@@ -71,7 +71,7 @@ from foundationpose_tpu_torch.core import meshio, poses as poses_mod, validate
 from foundationpose_tpu_torch.engine.refiner import PoseRefiner, RefinerConfig
 from foundationpose_tpu_torch.engine.scorer import PoseScorer, ScorerConfig
 from foundationpose_tpu_torch.ops import image as imops
-from foundationpose_tpu_torch.ops import raster, raster_cuda
+from foundationpose_tpu_torch.ops import depth_cuda, raster, raster_cuda
 from foundationpose_tpu_torch.utils.profiling import span
 
 HYP_BUCKET = 32  # register pads the hypothesis axis to a multiple of this
@@ -117,18 +117,19 @@ PREPROCESS_HALO = 4  # rows: erode (radius 2), then bilateral (radius 2)
 
 
 def preprocess_depth(depth, K, mesh=None):
-    """erode + bilateral + xyz map (the per-frame depth preprocessing). With
-    a device ``mesh`` whose first axis divides the rows, each process filters
-    its rows with a ``PREPROCESS_HALO`` halo and the rows are gathered: the
-    stencils are local, so the result is the unsharded one bit for bit."""
+    """erode + bilateral + xyz map (the per-frame depth preprocessing): one
+    K2 launch on a CUDA tensor, the plain composition on a CPU one
+    (``ops/depth_cuda.py``). With a device ``mesh`` whose first axis divides
+    the rows, each process filters its rows with a ``PREPROCESS_HALO`` halo
+    and the rows are gathered: the stencils are local, so the result is the
+    unsharded one bit for bit."""
     axis = mesh.axis_names[0] if mesh is not None else None
     if mesh is None or mesh.size(axis) == 1 or depth.shape[0] % mesh.size(axis):
-        d = imops.bilateral_filter_depth(imops.erode_depth(depth, radius=2), radius=2)
-        return d, geo.depth2xyzmap(d, K)
+        return depth_cuda.preprocess(depth, K)
     from foundationpose_tpu_torch.parallel.mesh import all_gather_rows, shard_rows
 
     rows, (lo, hi) = shard_rows(mesh, depth, PREPROCESS_HALO, axis)
-    d = imops.bilateral_filter_depth(imops.erode_depth(rows, radius=2), radius=2)
+    d, _ = depth_cuda.preprocess(rows)
     d = all_gather_rows(mesh, d[lo:d.shape[0] - hi], axis)
     return d, geo.depth2xyzmap(d, K)
 

@@ -1,4 +1,5 @@
-"""Least times of the crop rasterizer's kernels (K1s, K1r) on an H100.
+"""Least times of the port's card kernels on an H100: the crop rasterizer's
+(K1s, K1r) and the depth preprocess (K2).
 
 One place reckons what a render call must move and compute, from the inputs
 and outputs of a run: ``chip_smoke.py`` prints these bounds beside each
@@ -30,6 +31,12 @@ OPS_PER_TEXEL_PIXEL = 50  # four taps x three channels, weights, lighting
 OPS_PER_VERTEX = 40
 OPS_PER_FACE = 220
 OPS_PER_FACE_TILE = 4
+# K2, per output pixel: the erode (25 taps x 5: two range compares, a
+# difference, its magnitude, a compare) over the tile and its ring (1.69
+# pixels per output pixel at 32 x 8), the neighbourhood mean (25 x 6) and the
+# weighted sum (25 x 15, the exponential counted as 2).
+OPS_PER_K2_PIXEL = 740
+K2_BYTES_PER_PIXEL = 20  # 4 read (depth); 4 + 12 written (depth, xyz map)
 
 
 def tensor_bytes(*trees):
@@ -76,6 +83,12 @@ def _counts(mt, poses, scratch, out, hw):
         "rec_written": n_valid * 64 + (B * F - n_valid) * 16,
         "records_read": n_valid * 48,
     }
+
+
+def k2_bound(H, W):
+    """Bound of one K2 call on an (H, W) frame with its xyz map: each pixel
+    read once and written once, against its stencils' operations."""
+    return bound(K2_BYTES_PER_PIXEL * H * W, OPS_PER_K2_PIXEL * H * W)
 
 
 def k1_bounds(mt, poses, K, tfs, scratch, out, hw):

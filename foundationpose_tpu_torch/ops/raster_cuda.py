@@ -60,12 +60,16 @@ _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# kernel -> (source, extra flags). K1s rounds a*b+c twice, as the eager
-# tensor ops of its plain version do (see the note in its source).
-SOURCES = {
+# every card library of the port: kernel -> (source, extra flags). K1s and
+# K2 round a*b+c twice, as the eager tensor ops of their plain versions do
+# (see the notes in their sources). K2 is bound by ``ops/depth_cuda.py``.
+LIBRARIES = {
     "K1s": (os.path.join(_PKG_DIR, "csrc", "raster_setup.cu"), ["-fmad=false"]),
     "K1r": (os.path.join(_PKG_DIR, "csrc", "raster.cu"), []),
+    "K2": (os.path.join(_PKG_DIR, "csrc", "depth_preprocess.cu"), ["-fmad=false"]),
 }
+SOURCES = {k: LIBRARIES[k] for k in ("K1s", "K1r")}  # the kernels every render call launches
+_paths = None
 _libs = None
 _LAUNCHED_FNS = {"K1s": {}, "K1r": {}}  # kernel -> {id: launch function called}
 
@@ -138,20 +142,34 @@ def bind_raster(path):
     return fn
 
 
+def spec(name):
+    """(source, nvcc flags) of the card library ``name`` of ``LIBRARIES``."""
+    src, extra = LIBRARIES[name]
+    return src, _NVCC_FLAGS + extra
+
+
 def default_specs():
     """{kernel: (source, nvcc flags)} of the kernels every render call
     launches: no part switch defined."""
-    return {name: (src, _NVCC_FLAGS + extra) for name, (src, extra) in SOURCES.items()}
+    return {name: spec(name) for name in SOURCES}
+
+
+def library_paths():
+    """Build every library of ``LIBRARIES`` into ``_build/`` once per
+    process, the compilers running side by side, so a checkout's first call
+    pays one build. Returns {kernel: library path}. Raises on any failure."""
+    global _paths
+    if _paths is None:
+        _paths = compile_libraries({name: spec(name) for name in LIBRARIES}, BUILD_LOG)
+    return _paths
 
 
 def build():
-    """Compile both sources into ``_build/``, the compilers running side by
-    side, and load them. Raises on any failure."""
+    """Build (``library_paths``) and load K1s and K1r. Raises on any failure."""
     global _libs
-    if _libs is not None:
-        return _libs
-    paths = compile_libraries(default_specs(), BUILD_LOG)
-    _libs = {"K1s": bind_setup(paths["K1s"]), "K1r": bind_raster(paths["K1r"])}
+    if _libs is None:
+        paths = library_paths()
+        _libs = {"K1s": bind_setup(paths["K1s"]), "K1r": bind_raster(paths["K1r"])}
     return _libs
 
 

@@ -34,6 +34,8 @@ def test_sources_found():
     names = {os.path.relpath(f, ROOT) for f in _sources()}
     for must in ("chip_smoke.py", "foundationpose_tpu_torch/ops/raster_cuda.py",
                  "foundationpose_tpu_torch/csrc/raster.cu",
+                 "foundationpose_tpu_torch/ops/depth_cuda.py",
+                 "foundationpose_tpu_torch/csrc/depth_preprocess.cu",
                  "foundationpose_tpu_torch/engine/estimator.py",
                  "foundationpose_tpu_torch/field/runner.py",
                  "foundationpose_tpu_torch/slam/ba.py", "foundationpose_tpu_torch/slam/online.py",
