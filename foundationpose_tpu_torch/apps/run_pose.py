@@ -3,8 +3,10 @@
 Counterpart of foundationpose_tpu/apps/run_pose.py (reference main.py, call
 stack SURVEY.md 3.1), option for option and with the same defaults, plus
 ``--device``: load RGB + depth + intrinsics (3x3 or ZED conf) + mesh, obtain
-the object mask (a file, ``--manual-mask`` painted interactively, or
-``--prompt`` through the detector + segmenter), register, save the pose and,
+the object mask (a file, ``--manual-mask`` painted interactively,
+``--prompt`` through the detector + segmenter, or ``--box`` from an upstream
+detector through the port's SAM, ``detect/segmenter.BoxSegmenter``, whose
+mask stays on the device), register, save the pose and,
 at ``--debug >= 1``, ``vis.png``; convert the pose to 6D robot coordinates and
 publish it to NetworkTables when asked.
 
@@ -45,6 +47,9 @@ def build_parser():
     p.add_argument("--mask", default=None, help="object mask file; omit for --manual-mask or --prompt")
     p.add_argument("--manual-mask", action="store_true", help="paint the mask interactively")
     p.add_argument("--prompt", default=None, help="text prompt for detector+segmenter auto-masking")
+    p.add_argument("--box", default=None,
+                   help="x0,y0,x1,y1: a detector's box in pixels, masked by SAM from $SAM_PATH "
+                        "(a segment_anything .pth or a HuggingFace SAM directory)")
     p.add_argument("--est-refine-iter", type=int, default=5)
     p.add_argument("--mode", choices=["learned", "geometric"], default="geometric",
                    help="refiner/scorer backend; 'learned' uses weights/agnostic or --weights")
@@ -72,11 +77,21 @@ def get_mask(args, rgb, depth):
         if mask is None:
             raise SystemExit("masking aborted")
         return mask
+    if args.box:
+        from foundationpose_tpu_torch.detect.segmenter import BoxSegmenter
+
+        box = [float(v) for v in args.box.split(",")]
+        ckpt = os.getenv("SAM_PATH", "")
+        if len(box) != 4:
+            raise SystemExit(f"--box takes x0,y0,x1,y1, got {args.box!r}")
+        if not ckpt or not os.path.exists(ckpt):
+            raise SystemExit("--box needs a SAM checkpoint: set SAM_PATH")
+        return BoxSegmenter(checkpoint=ckpt, device=args.device)(rgb, box)
     if args.prompt:
         from foundationpose_tpu_torch.detect.pipeline import AutoMasker
 
         return AutoMasker(device=args.device).mask_from_prompt(rgb, args.prompt)
-    raise SystemExit("provide --mask, --manual-mask, or --prompt")
+    raise SystemExit("provide --mask, --manual-mask, --box or --prompt")
 
 
 def build_engine(args, mesh, device):

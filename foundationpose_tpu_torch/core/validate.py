@@ -16,6 +16,7 @@ from __future__ import annotations
 import logging
 
 import numpy as np
+import torch
 
 
 def check_intrinsics(K, name="K"):
@@ -60,10 +61,17 @@ def check_rgbd(rgb, depth, name="register"):
 
 
 def check_mask(mask, depth_shape, name="register"):
-    mask = np.asarray(mask)
-    if mask.shape != tuple(depth_shape):
+    """The mask as given where its shape is the depth's: a bool or uint8
+    tensor stays a tensor (on its device, nothing read back), anything else
+    becomes a numpy array."""
+    if torch.is_tensor(mask):
+        if mask.dtype not in (torch.bool, torch.uint8):
+            raise ValueError(f"{name}: a tensor mask must be bool or uint8, got {mask.dtype}")
+    else:
+        mask = np.asarray(mask)
+    if tuple(mask.shape) != tuple(depth_shape):
         raise ValueError(
-            f"{name}: mask {mask.shape} does not match depth {tuple(depth_shape)}"
+            f"{name}: mask {tuple(mask.shape)} does not match depth {tuple(depth_shape)}"
         )
     return mask
 

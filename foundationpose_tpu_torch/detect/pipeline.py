@@ -1,10 +1,13 @@
 """Text-prompted automatic object masking: open-vocabulary detection +
 instance segmentation.
 
-The port's own copy of foundationpose_tpu/detect/pipeline.py. Two
+The port's own copy of foundationpose_tpu/detect/pipeline.py. Three
 differences: ``AutoMasker(device=None)`` means cuda, as everywhere in the port
-(the JAX package's default is "cpu"), and images reach the HuggingFace
-processors as numpy arrays, not PIL images. ``depth_box_fallback`` labels
+(the JAX package's default is "cpu"); images reach the HuggingFace detector's
+processor as numpy arrays, not PIL images; and the segmenter is the port's
+own SAM (``detect/segmenter.BoxSegmenter``, ``models/sam.py``), which loads a
+``segment_anything`` ``.pth`` or a HuggingFace checkpoint directory and
+returns the mask on the device, where ``register`` takes it. ``depth_box_fallback`` labels
 4-connected components with ``scipy.ndimage.label`` in place of
 ``cv2.connectedComponentsWithStats``; both number components in raster order
 of their first pixel, so ties in area go to the same component.
@@ -12,8 +15,8 @@ of their first pixel, so ties in area go to the same component.
 The reference declares this capability (readme.md:9-11: Grounding-DINO box
 from a text prompt -> SAM2 mask; weights fetched in docker/run_container.sh:
 33-35) but ships no code for it. Here it is a real pipeline built on the
-HuggingFace ``transformers`` implementations of GroundingDINO and SAM,
-loading from LOCAL checkpoints only (this host has zero egress):
+HuggingFace ``transformers`` implementation of GroundingDINO and the port's
+SAM, loading from LOCAL checkpoints only (this host has zero egress):
 
     AutoMasker(detector_path=..., segmenter_path=...).mask_from_prompt(rgb, "mustard bottle")
 
@@ -32,6 +35,7 @@ import torch
 from scipy import ndimage
 
 from foundationpose_tpu_torch import resolve_device
+from foundationpose_tpu_torch.detect.segmenter import BoxSegmenter
 
 DEFAULT_DETECTOR = os.getenv("GROUNDING_DINO_PATH", "")
 DEFAULT_SEGMENTER = os.getenv("SAM_PATH", "")
@@ -57,19 +61,13 @@ class AutoMasker:
             )
         self.device = resolve_device(device)
         device = self.device
-        from transformers import (
-            AutoModelForZeroShotObjectDetection,
-            AutoProcessor,
-            SamModel,
-            SamProcessor,
-        )
+        from transformers import AutoModelForZeroShotObjectDetection, AutoProcessor
 
         self.det_processor = AutoProcessor.from_pretrained(self.detector_path)
         self.detector = AutoModelForZeroShotObjectDetection.from_pretrained(
             self.detector_path
         ).to(device).eval()
-        self.sam_processor = SamProcessor.from_pretrained(self.segmenter_path)
-        self.segmenter = SamModel.from_pretrained(self.segmenter_path).to(device).eval()
+        self.segmenter = BoxSegmenter(checkpoint=self.segmenter_path, device=device)
 
     def detect_box(self, rgb, prompt):
         """Best box (x0,y0,x1,y1) for the prompt, or None."""
@@ -95,27 +93,16 @@ class AutoMasker:
         return results["boxes"][best].cpu().numpy(), float(results["scores"][best])
 
     def segment_box(self, rgb, box):
-        """SAM mask for a box prompt."""
-        image = np.asarray(rgb, dtype=np.uint8)
-        inputs = self.sam_processor(
-            image, input_boxes=[[list(map(float, box))]], return_tensors="pt"
-        ).to(self.device)
-        with torch.no_grad():
-            outputs = self.segmenter(**inputs)
-        masks = self.sam_processor.image_processor.post_process_masks(
-            outputs.pred_masks.cpu(),
-            inputs["original_sizes"].cpu(),
-            inputs["reshaped_input_sizes"].cpu(),
-        )[0]
-        scores = outputs.iou_scores.cpu().numpy().reshape(-1)
-        best = int(np.argmax(scores))
-        return np.asarray(masks[0, best]).astype(np.uint8)
+        """SAM mask for a box prompt: (H, W) bool on the device."""
+        if not torch.is_tensor(rgb):
+            rgb = np.asarray(rgb, dtype=np.uint8)
+        return self.segmenter(rgb, box)
 
     def mask_from_prompt(self, rgb, prompt):
         box, score = self.detect_box(rgb, prompt)
         if box is None:
             logging.warning("no detection for prompt %r", prompt)
-            return np.zeros(np.asarray(rgb).shape[:2], np.uint8)
+            return torch.zeros(np.asarray(rgb).shape[:2], dtype=torch.bool, device=self.device)
         logging.info("detected %r box=%s score=%.3f", prompt, box, score)
         return self.segment_box(rgb, box)
 

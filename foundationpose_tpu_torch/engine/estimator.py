@@ -78,13 +78,16 @@ HYP_BUCKET = 32  # register pads the hypothesis axis to a multiple of this
 
 
 def _upload(array, device, dtype=None):
-    """numpy array -> tensor on ``device``. On a CUDA device the array is
-    staged in pinned memory and copied asynchronously on the current stream
-    (the pinned block is recycled only after the copy has run); on the CPU it
-    is copied into a new tensor. ``dtype`` converts on the host first."""
-    t = torch.from_numpy(np.ascontiguousarray(array))
+    """numpy array or tensor -> tensor on ``device``. On a CUDA device a host
+    array is staged in pinned memory and copied asynchronously on the current
+    stream (the pinned block is recycled only after the copy has run); on the
+    CPU it is copied into a new tensor. ``dtype`` converts on the host first.
+    A tensor already on a device is moved (not copied) to ``device``."""
+    t = array if torch.is_tensor(array) else torch.from_numpy(np.ascontiguousarray(array))
     if dtype is not None:
         t = t.to(dtype)
+    if t.device.type != "cpu":
+        return t.to(device)
     if device.type != "cuda":
         return t.clone()  # never an alias of the caller's array
     return t.pin_memory().to(device, non_blocking=True)
@@ -400,7 +403,9 @@ class FoundationPoseTorch:
     @torch.no_grad()
     def register(self, K, rgb, depth, ob_mask, iteration=None):
         """Global registration. Returns (4,4) float64 pose of the ORIGINAL
-        (uncentred) mesh in camera."""
+        (uncentred) mesh in camera. ``ob_mask``: a host array, or a bool or
+        uint8 tensor, which is used where it lies (a device mask, such as
+        ``detect/segmenter.BoxSegmenter``'s, is not read back)."""
         with span("estimator.register"):
             return self._register(K, rgb, depth, ob_mask, iteration)
 
@@ -414,7 +419,8 @@ class FoundationPoseTorch:
             K_t = _upload(K, dev, torch.float32)
             rgb_t = _upload(self._as_u8(rgb), dev).float()
             depth_t = _upload(np.asarray(depth, np.float32), dev)
-            mask_t = _upload(np.asarray(ob_mask) > 0, dev)
+            mask_t = (ob_mask.to(dev, non_blocking=True) > 0 if torch.is_tensor(ob_mask)
+                      else _upload(np.asarray(ob_mask) > 0, dev))
             if cfg.register_mask_dilation:
                 # gate the OBSERVED frame to a dilated margin around the
                 # segmentation mask; zeroed depth reads as sensor holes

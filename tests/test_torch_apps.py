@@ -54,6 +54,8 @@ def _options(parser):
 def test_parsers_match_jax(port, ref):
     got, want = _options(port.build_parser()), _options(ref.build_parser())
     assert got.pop("device") == (("--device",), None, False, None, None, "_StoreAction")
+    if port is run_pose:  # the port's own SAM on a detector's box
+        assert got.pop("box") == (("--box",), None, False, None, None, "_StoreAction")
     assert got == want
 
 
