@@ -16,6 +16,10 @@ bf16 nets from the shipped object-agnostic checkpoint where a net runs):
 - ``MultiObjectTracker.track`` on four objects, each in its own stream;
 - streaming ``track_one(sync=False)``, held against ``sync=True`` and run
   under ``torch.cuda.set_sync_debug_mode("error")``;
+- ``track_one``'s refine and score replayed as CUDA graphs against the same
+  calls run eagerly: 30 frames bit for bit, every replay under sync debug
+  mode "error", K1s + K1r and K2 per frame as eagerly, streamed equal to
+  synchronous, the per-frame wall times of both printed;
 - the accuracy harness over the ``evalsuite`` scenes (four scenes, depth cut
   to two register trials and ten tracked frames, geometric and
   learned_hybrid, every schedule), its renders held against the plain
@@ -104,6 +108,7 @@ ADDS_GATE = 0.10       # of the mesh diameter
 # twice that.
 ADDS_GATE_GEOMETRIC = 0.03
 TRACK_FRAMES = 5
+TRACK_GRAPH_STEPS = 15  # the track_graph phase plays them forward, then back: 30 frames
 S = 160                # crop size of the main path
 FAILURES = []          # accuracy gates that failed; reported after the phase lines
 PER_CALL = {}          # entry-point call -> launch counts read around one such call in this run
@@ -1145,12 +1150,13 @@ def run_streaming(torch, metrics, raster_cuda, est, chain, scene, frames_in, smi
 
     # ---- behind a backlog of matrix products (a measurement, not a gate): how
     # far ahead of the card the host gets. No call under track_one waits for the
-    # card, but the CUDA runtime queues only so many launches ahead, and a frame
-    # of this eager code is ~2500: once the queue is full a launch call returns
-    # only when the card has taken work off it. Measured twice: plainly, and
-    # under the profiler, whose record of the launch calls' durations shows
-    # where the host's time went (on an H100: nearly all of it inside about as
-    # many launch calls as products queued, each as long as one product).
+    # card, and with its refine and score calls replayed as CUDA graphs a frame
+    # is ~50 launches, too few to fill the CUDA runtime's launch queue, which
+    # would hold the host inside a launch call until the card took work off it.
+    # Measured twice: plainly, and under the profiler, whose record of the
+    # launch calls' durations shows whether the host waited in them (on an
+    # H100: no longer than on an idle card, and both frames were enqueued
+    # before the backlog finished).
     est.pose_last = chain
     torch.cuda.synchronize()
     for _ in range(n_backlog):
@@ -1183,10 +1189,10 @@ def run_streaming(torch, metrics, raster_cuda, est, chain, scene, frames_in, smi
                  "host_ms": behind_ms, "returned_before_backlog_finished": returned_early,
                  "launch_calls_behind_backlog": launch_backlog,
                  "launch_calls_on_idle_card": launch_quiet,
-                 "note": "not a gate: no call waits for the card, but with thousands of "
-                         "launches per frame the host runs ahead only as far as the CUDA "
-                         "runtime queues launches; the host time inside the launch calls, "
-                         "behind the backlog against on an idle card, shows it"},
+                 "note": "not a gate: no call waits for the card, and the host runs "
+                         "ahead as far as the CUDA runtime queues launches; the host time "
+                         "inside the launch calls, behind the backlog against on an idle "
+                         "card, shows whether the queue filled"},
         host_ms_to_enqueue_a_frame=enqueue_ms, host_ms_per_frame_sync=sync_ms,
         median_enqueue_ms=float(np.median(enqueue_ms)),
         median_sync_ms=float(np.median(sync_ms)),
@@ -1194,6 +1200,124 @@ def run_streaming(torch, metrics, raster_cuda, est, chain, scene, frames_in, smi
         all_frames_landed_ms_sync=sync_total_ms, launches=counts, launches_sync=sync_counts,
         **err, card=smi)
     return add_counts({}, counts)
+
+
+@contextlib.contextmanager
+def sync_debug_error(torch):
+    """Any synchronising CUDA call inside raises."""
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def run_track_graph(torch, demo, metrics, raster_cuda, scene, smi):
+    """A tracked frame's refine and score as CUDA graphs against the same
+    calls run eagerly. 30 frames (``TRACK_GRAPH_STEPS`` steps of the demo's
+    motion, played forward and then back as the benchmark's orbit plays its
+    pool) through one full-width engine from one registered pose, three
+    times: eagerly twice (the estimator handed no graph cache) and with a
+    fresh cache (frame 0 eager, frame 1 warm-up and capture, then replays,
+    each refine and score replay under ``set_sync_debug_mode("error")``).
+    Gated: every frame's chain pose, refined hypotheses and scores bit for
+    bit against the first eager run — or, if the two eager runs differ,
+    within their spread, which is printed —; K1s + K1r 4 and K2 1 per frame
+    in every run; and the same 30 frames streamed (``sync=False``, enqueued
+    back to back, one wait at the end) through the graphs equal to the
+    synchronous graph run within 1e-5, as ``track_streaming`` holds its
+    frames. Prints per-frame wall times, eager against graph, and the
+    streamed run's host time to enqueue a frame."""
+    from foundationpose_tpu_torch.engine.graphs import GraphCache
+
+    est = demo.build_estimator(scene["mesh"], device="cuda")
+    K = scene["K"]
+    est.register(K, scene["rgb"], scene["depth"], scene["mask"])
+    start = est.pose_last.copy()
+    steps = list(demo.motion_frames(scene, TRACK_GRAPH_STEPS))
+    frames = steps + steps[::-1]
+
+    def run(cache, strict_from=None, sync=True):
+        """The frames from ``start``; per frame the chain pose, the refine
+        and score outputs, the wall ms (sync) or enqueue ms (streamed)."""
+        est._track_graphs = cache
+        est.pose_last = start
+        strict, kept = [False], []
+
+        def keeper(fn):
+            def kept_call(*args, **kwargs):
+                with sync_debug_error(torch) if strict[0] else contextlib.nullcontext():
+                    out = fn(*args, **kwargs)
+                kept.append(out)
+                return out
+            return kept_call
+
+        est.refiner.refine = keeper(est.refiner.refine)
+        est.scorer.score = keeper(est.scorer.score)
+        chain, ms = [], []
+        reset_launches(raster_cuda)
+        torch.cuda.synchronize()
+        t_all = time.perf_counter()
+        try:
+            for f, (_, rgb_f, depth_f) in enumerate(frames):
+                strict[0] = strict_from is not None and f >= strict_from
+                if sync:
+                    before = launch_counts(raster_cuda)
+                    _, t = timed(torch, lambda: est.track_one(rgb_f, depth_f, K))
+                    expect_launches(raster_cuda, before, 4, f"track_graph frame {f}", k2=1)
+                else:
+                    t0 = time.perf_counter()
+                    est.track_one(rgb_f, depth_f, K, sync=False)
+                    t = (time.perf_counter() - t0) * 1e3
+                chain.append(est._pose_last_dev)
+                ms.append(t)
+            torch.cuda.synchronize()
+        finally:
+            del est.refiner.refine, est.scorer.score
+        total_ms = (time.perf_counter() - t_all) * 1e3
+        counts = expect_launches(raster_cuda, dict.fromkeys(launch_counts(raster_cuda), 0),
+                                 4 * len(frames), f"track_graph, {len(frames)} frames", len(frames))
+        outs = [torch.cat([c.reshape(-1) for c in chain])] + [o.reshape(-1) for o in kept]
+        return {"outs": outs, "ms": ms, "total_ms": total_ms, "counts": counts,
+                "last": est.pose_last.copy()}
+
+    def gap(a, b):
+        return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
+
+    eager = run(None)
+    eager2 = run(None)
+    cache = GraphCache()
+    graphed = run(cache, strict_from=2)
+    kernels = sorted(g.kernels for g in cache._graphs.values() if hasattr(g, "kernels"))
+    streamed = run(cache, sync=False)
+    spread = gap(eager["outs"], eager2["outs"])
+    graph_gap = gap(eager["outs"], graphed["outs"])
+    if len(graphed["outs"]) != len(eager["outs"]) or graph_gap > spread:
+        FAILURES.append(f"track_graph: graphs differ from eager by {graph_gap:.3g} "
+                        f"(eager against eager: {spread:.3g})")
+    stream_gap = gap(graphed["outs"][:1], streamed["outs"][:1])
+    if stream_gap > 1e-5:
+        FAILURES.append(f"track_graph: streamed graphs differ from sync by {stream_gap:.3g}")
+    if len(kernels) != 2:
+        fail(f"track_graph: the cache holds {len(kernels)} graphs, expected refine and score")
+    err = check_pose("track_graph last frame", graphed["last"] @ est.get_tf_to_centered_mesh(),
+                     frames[-1][0], scene["mesh"], est.diameter, metrics)
+    say("track_graph", frames=len(frames), bit_for_bit=graph_gap == 0.0,
+        max_abs_diff_graph_to_eager=graph_gap, max_abs_diff_eager_to_eager=spread,
+        max_abs_diff_streamed_to_sync=stream_gap, graph_kernels=kernels,
+        sync_debug_mode="error round every refine and score replay (frames 2 on)",
+        eager_ms=eager["ms"], graph_ms=graphed["ms"],
+        median_eager_ms=float(np.median(eager["ms"][2:])),
+        median_graph_ms=float(np.median(graphed["ms"][2:])),
+        capture_frame_ms=graphed["ms"][1],
+        streamed_enqueue_ms=streamed["ms"],
+        median_streamed_enqueue_ms=float(np.median(streamed["ms"][2:])),
+        all_frames_landed_ms={"eager": eager["total_ms"], "graph": graphed["total_ms"],
+                              "graph_streamed": streamed["total_ms"]},
+        launches=graphed["counts"], **err, card=smi)
+    return add_counts(add_counts(add_counts({}, eager["counts"], 2), graphed["counts"]),
+                      streamed["counts"])
 
 
 def centred_diameter(meshio, mesh):
@@ -3285,6 +3409,8 @@ def main():
         torch, demo, metrics, raster, raster_cuda, scene, smi)
     by_path["streaming track_one(sync=False)"] = run_streaming(
         torch, metrics, raster_cuda, est, reg_chain, scene, frames_in, smi)
+    by_path["track_one, eager against CUDA graphs (30 frames x 4 runs)"] = run_track_graph(
+        torch, demo, metrics, raster_cuda, scene, smi)
     by_path["evalsuite harness, 4 scenes x (geometric + learned_hybrid)"] = run_evalsuite(
         torch, metrics, raster, raster_cuda, smi)
     _, io_paths = run_io_apps(torch, demo, metrics, raster, raster_cuda, smi)

@@ -11,9 +11,11 @@ per-frame multi-hypothesis tracking.
 reference schedule or the funnel (a coarse pass over all hypotheses, optionally
 on a decimated mesh and at a smaller crop size, then the remaining iterations
 on the top K), plus the final polish; ``track_one`` is ``_track_program_multi``
-(and ``_track_program`` for one hypothesis). They run as eager tensor code:
-the JAX package's single-dispatch program machinery and integer upload formats
-serve a remote-attached accelerator and have no counterpart here. What is kept
+(and ``_track_program`` for one hypothesis). They run as eager tensor code,
+except that ``track_one``'s refine and score calls replay CUDA graphs on a
+card (``engine/graphs.py``): the JAX package's single-dispatch program
+machinery and integer upload formats serve a remote-attached accelerator and
+have no counterpart here. What is kept
 of them is the hypothesis-axis bucket: ``register`` pads the rotation grid to a
 multiple of 32 with copies of hypothesis 0, because the pads take part in
 ScoreNet's cross-pose attention and in the batch-axis neighbourhood of the
@@ -47,11 +49,14 @@ Host <-> device traffic goes through two helpers, ``_upload`` (pinned memory,
 asynchronous copy) and ``_PoseDownload`` (pinned buffer + an event recorded
 after the copy), so that ``track_one(sync=False)`` makes no call that waits
 for the card: the pose chain stays on the device between frames and nothing
-under ``track_one`` reads a device value on the host. That is not the same as
-running frames ahead of a busy card: a frame is a few thousand eager kernel
-launches, the CUDA runtime queues only so many before a launch call itself
-holds the host, and so the host's lead over the card is a part of a frame.
-Queueing whole frames ahead needs the frame as one CUDA graph.
+under ``track_one`` reads a device value on the host. With the refine and
+score calls replayed as two graph launches, a tracked frame is a few dozen
+launches, not the ~1,700 it is eagerly, so the CUDA runtime's launch queue no
+longer fills inside a frame and the host can enqueue whole frames while the
+card still runs earlier ones. ``chip_smoke.py``'s ``track_streaming`` phase
+measures that lead: it queues two frames behind a backlog of matrix products
+and reads whether their calls returned before the backlog finished and how
+long the launch calls held the host.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ import torch
 from foundationpose_tpu_torch import resolve_device
 from foundationpose_tpu_torch.core import geometry as geo
 from foundationpose_tpu_torch.core import meshio, poses as poses_mod, validate
+from foundationpose_tpu_torch.engine.graphs import GraphCache
 from foundationpose_tpu_torch.engine.refiner import PoseRefiner, RefinerConfig
 from foundationpose_tpu_torch.engine.scorer import PoseScorer, ScorerConfig
 from foundationpose_tpu_torch.ops import image as imops
@@ -234,6 +240,9 @@ class FoundationPoseTorch:
         for name, part in (("refiner", self.refiner), ("scorer", self.scorer)):
             if part.device.type != self.device.type:
                 raise ValueError(f"{name} lives on {part.device}, estimator on {self.device}")
+        # the tracked frame's refine and score calls as CUDA graphs; register
+        # and the CPU run eagerly
+        self._track_graphs = GraphCache() if self.device.type == "cuda" else None
         self.reset_object(mesh, symmetry_tfs)
         self.pose_last = None
         self.scores = None
@@ -262,7 +271,9 @@ class FoundationPoseTorch:
     # ------------------------------------------------------------------
     def reset_object(self, mesh: meshio.Mesh, symmetry_tfs=None):
         """Centre the mesh, compute the diameter, build mesh tensors and the
-        rotation grid."""
+        rotation grid; drop the tracking graphs."""
+        if self._track_graphs is not None:
+            self._track_graphs.clear()
         bounds = mesh.bounds
         self.model_center = (bounds[0] + bounds[1]) / 2.0
         self.mesh_ori = mesh
@@ -610,11 +621,12 @@ class FoundationPoseTorch:
         once (the same pose; converting it, or reading ``pose_last``, waits).
         The chain pose never leaves the device and no call below reads a
         device value or synchronises, so the next frame can be prepared and
-        enqueued while this one runs. The host's lead is bounded all the same:
-        a frame is a few thousand launches, and once the CUDA runtime's launch
-        queue is full a launch call holds the host until the card has caught
-        up (see the module docstring). On the CPU the tensor is simply
-        returned. Both modes give the same poses."""
+        enqueued while this one runs; on a card the refine and score calls
+        replay CUDA graphs captured on the first frames after a
+        ``reset_object`` (``engine/graphs.py``), so a frame is a few dozen
+        launches and the host can run whole frames ahead (see the module
+        docstring). On the CPU the tensor is simply returned. Both modes give
+        the same poses."""
         if self._pose_last_dev is None and self._pose_last_np is None:
             raise RuntimeError("call register() before track_one()")
         with span("estimator.track_one"):
@@ -645,7 +657,7 @@ class FoundationPoseTorch:
             pose_last = self._pose_last_dev
             if pose_last is None:
                 pose_last = _upload(self._pose_last_np[None], dev, torch.float32)
-        mt, diam = self.mesh_tensors, float(self.diameter)
+        mt, diam, graphs = self.mesh_tensors, float(self.diameter), self._track_graphs
         if self.cfg.track_hypotheses > 1:
             gate = int(self.cfg.track_gate_px)
             perturb = self._track_perturb()
@@ -655,17 +667,17 @@ class FoundationPoseTorch:
                 [pose_last, geo.egocentric_delta_pose_to_pose(base, perturb[:, :3], dR)]
             )
             refined = self.refiner.refine(
-                mt, rgb_t, xyz_map, K_t, hyp, diam, iteration, gate_px=gate
+                mt, rgb_t, xyz_map, K_t, hyp, diam, iteration, gate_px=gate, graphs=graphs
             )
             scores = self.scorer.score(
-                mt, rgb_t, xyz_map, K_t, refined, diam, gate_px=gate
+                mt, rgb_t, xyz_map, K_t, refined, diam, gate_px=gate, graphs=graphs
             ).clone()
             scores[0] += 0.01  # stickiness: the unperturbed chain wins ties
             # index_select: indexing with a 0-d device tensor would read it on the host
             best = refined.index_select(0, torch.argmax(scores).reshape(1))
         else:
             best = self.refiner.refine(
-                mt, rgb_t, xyz_map, K_t, pose_last, diam, iteration
+                mt, rgb_t, xyz_map, K_t, pose_last, diam, iteration, graphs=graphs
             )
         out = best[0] @ self._tf_centered_dev
         self._pose_last_dev = best

@@ -191,8 +191,10 @@ class GeometricRefiner:
         self.device = resolve_device(device)
 
     def refine(self, mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
-               iteration=5, out_size=None, gate_px=0):
-        """poses: (N,4,4) -> refined (N,4,4) float32 tensor on the device."""
+               iteration=5, out_size=None, gate_px=0, graphs=None):
+        """poses: (N,4,4) -> refined (N,4,4) float32 tensor on the device.
+        ``graphs`` (the tracked frame's graph cache) is taken and not used:
+        geometric tracking runs eagerly."""
         n = len(poses)
         with span("refiner.refine", n):
             poses = geo.as_f32(poses, mesh_tensors["pos"].device)
@@ -212,9 +214,10 @@ class GeometricScorer:
         self.device = resolve_device(device)
 
     def score(self, mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
-              out_size=None, gate_px=0, device_mesh=None):
+              out_size=None, gate_px=0, device_mesh=None, graphs=None):
         """poses: (N,4,4) -> scores (N,) float32 tensor on the device
-        (``device_mesh``: see ``geo_score``)."""
+        (``device_mesh``: see ``geo_score``). ``graphs`` (the tracked frame's
+        graph cache) is taken and not used: geometric tracking runs eagerly."""
         with span("scorer.score", len(poses)):
             return geo_score(self.cfg, mesh_tensors, poses, K, rgb, xyz_map,
                              mesh_diameter, gate_px=gate_px, device_mesh=device_mesh)

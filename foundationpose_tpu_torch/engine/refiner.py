@@ -6,7 +6,8 @@ for each of ``iteration`` rounds, render all hypotheses into crops, run
 RefineNet on [rendered | observed] 6-channel inputs, decode the predicted
 delta (tracknet or deepim translation, axis-angle or 6d rotation) and apply
 it egocentrically. The loop is an eager Python loop; the hypothesis axis is
-the batch axis.
+the batch axis. A tracked frame's refine call is captured and replayed as a
+CUDA graph (``engine/graphs.py``); every other call runs eagerly.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from foundationpose_tpu_torch import resolve_device
 from foundationpose_tpu_torch.core import geometry as geo
+from foundationpose_tpu_torch.engine import graphs as graph_mod
 from foundationpose_tpu_torch.engine.crop import make_crop_batch
 from foundationpose_tpu_torch.models.refine_net import RefineNet
 from foundationpose_tpu_torch.utils.profiling import span
@@ -67,18 +69,29 @@ class PoseRefiner:
 
     @torch.no_grad()
     def refine(self, mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
-               iteration=5, out_size=None, gate_px=0):
-        """poses: (N,4,4) -> refined (N,4,4) float32 tensor on the device."""
+               iteration=5, out_size=None, gate_px=0, graphs=None):
+        """poses: (N,4,4) -> refined (N,4,4) float32 tensor on the device.
+        ``graphs``, a ``graphs.GraphCache`` (the tracked frame's; ``rgb``,
+        ``xyz_map`` and ``K`` device tensors), runs the call as a CUDA graph
+        once it has been captured; without one it runs eagerly."""
         n = len(poses)
         with span("refiner.refine", n):
             poses = geo.as_f32(poses, self.device)
-            for _ in range(int(iteration)):
-                with span("refiner.iteration", n):
-                    poses = refine_once(
-                        self.net, mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
-                        cfg=self.cfg, out_size=out_size, gate_px=gate_px,
-                    )
-        return poses
+
+            def run(rgb, xyz_map, K, poses):
+                for _ in range(int(iteration)):
+                    with span("refiner.iteration", n):
+                        poses = refine_once(
+                            self.net, mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,
+                            cfg=self.cfg, out_size=out_size, gate_px=gate_px,
+                        )
+                return poses
+
+            if graphs is None:
+                return run(rgb, xyz_map, K, poses)
+            key = ("refine", int(iteration), out_size, int(gate_px), float(mesh_diameter),
+                   self.cfg, graph_mod.module_key(self.net), graph_mod.tensors_key(mesh_tensors))
+            return graphs.run(key, run, (rgb, xyz_map, K, poses))
 
 
 def refine_inputs(mesh_tensors, poses, K, rgb, xyz_map, mesh_diameter,

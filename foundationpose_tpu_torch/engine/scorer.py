@@ -4,7 +4,9 @@ Counterpart of foundationpose_tpu/engine/scorer.py (``ScorerConfig``,
 ``PoseScorer``, ``HybridScorer``): one cross-pose-attention forward over all
 L hypotheses of a frame; the hybrid adds ``weight x`` the geometric score
 (depth consistency + normal agreement + silhouette edges) to the net logit —
-geometric veto on gross wrong basins, ScoreNet on fine ranking.
+geometric veto on gross wrong basins, ScoreNet on fine ranking. A tracked
+frame's score call is captured and replayed as a CUDA graph
+(``engine/graphs.py``); every other call runs eagerly.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import dataclasses
 import torch
 
 from foundationpose_tpu_torch import resolve_device
+from foundationpose_tpu_torch.engine import graphs as graph_mod
 from foundationpose_tpu_torch.engine.crop import make_crop_batch
 from foundationpose_tpu_torch.engine.geometric import GeometricConfig, geo_score
 from foundationpose_tpu_torch.engine.refiner import net_dtype, seeded_init
@@ -50,14 +53,24 @@ class PoseScorer:
         ).to(self.device).eval()
 
     def score(self, mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
-              out_size=None, gate_px=0, device_mesh=None):
+              out_size=None, gate_px=0, device_mesh=None, graphs=None):
         """poses: (N,4,4) -> scores (N,) float32 tensor on the device. With a
         ``device_mesh`` (first axis; N splits evenly over it) each process
         renders and encodes its slice of the hypotheses, the pair features
-        are gathered in order, and every process ranks all N."""
+        are gathered in order, and every process ranks all N. ``graphs``, a
+        ``graphs.GraphCache`` (the tracked frame's; device tensors in, no
+        ``device_mesh``), runs the call as a CUDA graph once it has been
+        captured."""
         with span("scorer.score", len(poses)):
-            return self._score(mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
-                               out_size, gate_px, device_mesh)
+            def run(rgb, xyz_map, K, poses):
+                return self._score(mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
+                                   out_size, gate_px, device_mesh)
+
+            if graphs is None:
+                return run(rgb, xyz_map, K, poses)
+            key = ("score", out_size, int(gate_px), float(mesh_diameter), self.cfg,
+                   graph_mod.module_key(self.net), graph_mod.tensors_key(mesh_tensors))
+            return graphs.run(key, run, (rgb, xyz_map, K, poses))
 
     @torch.no_grad()
     def _score(self, mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
@@ -124,11 +137,20 @@ class HybridScorer:
         return self.learned.net
 
     def score(self, mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
-              out_size=None, gate_px=0, device_mesh=None):
+              out_size=None, gate_px=0, device_mesh=None, graphs=None):
+        """As ``PoseScorer.score``; a graph holds both terms."""
         with span("scorer.score", len(poses)):
-            s = self.learned._score(mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
-                                    out_size, gate_px, device_mesh)
-            g = geo_score(self.geo_cfg, mesh_tensors, poses, K, rgb, xyz_map,
-                          mesh_diameter, gate_px=gate_px, device_mesh=device_mesh)
-            return s + self.weight * g
+            def run(rgb, xyz_map, K, poses):
+                s = self.learned._score(mesh_tensors, rgb, xyz_map, K, poses, mesh_diameter,
+                                        out_size, gate_px, device_mesh)
+                g = geo_score(self.geo_cfg, mesh_tensors, poses, K, rgb, xyz_map,
+                              mesh_diameter, gate_px=gate_px, device_mesh=device_mesh)
+                return s + self.weight * g
+
+            if graphs is None:
+                return run(rgb, xyz_map, K, poses)
+            key = ("hybrid", out_size, int(gate_px), float(mesh_diameter), self.cfg,
+                   self.geo_cfg, self.weight, graph_mod.module_key(self.net),
+                   graph_mod.tensors_key(mesh_tensors))
+            return graphs.run(key, run, (rgb, xyz_map, K, poses))
 

@@ -18,8 +18,10 @@ and keeps one record in memory (``records()``, ``summary()``; ``trace``
 writes them to ``spans.json``). Otherwise it costs one check and records
 nothing. A span never synchronises and never reads a device value: ``n``
 (the batch it covers: hypotheses, crop pairs) and ``size`` (a crop's side)
-come from shapes. A name ending in ``.wait`` marks a host read of a device
-value, where the host waits for the card.
+come from shapes; entering a span gives its record (None while no profiler
+records), whose ``n`` may be set inside the span once it is known. A name
+ending in ``.wait`` marks a host read of a device value, where the host waits
+for the card.
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ class _Span:
         rec["start_ns"] = time.perf_counter_ns()
         self.range = torch.profiler.record_function(rec["name"])
         self.range.__enter__()
-        return self
+        return rec
 
     def __exit__(self, *exc):
         self.range.__exit__(*exc)
