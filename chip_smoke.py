@@ -99,6 +99,7 @@ import time
 
 import numpy as np
 
+from foundationpose_tpu_torch.ops import kernels
 from foundationpose_tpu_torch.utils.profiling import device_ms, event_ms, nvidia_smi_line
 
 ADDS_GATE = 0.10       # of the mesh diameter
@@ -637,12 +638,12 @@ def run_depth_kernel(torch, depth_cuda, scene, smi):
              ("holes_out_of_range_480x640", noisy, K)]
     rows = []
     for name, d, K_ in cases:
-        before = depth_cuda.LAUNCHES["K2"]
+        before = kernels.LAUNCHES["K2"]
         out, xyz = depth_cuda.preprocess(d, K_)
         again, xyz_again = depth_cuda.preprocess(d, K_)
         torch.cuda.synchronize()
-        if depth_cuda.LAUNCHES["K2"] - before != 2:
-            fail(f"K2 {name}: {depth_cuda.LAUNCHES['K2'] - before} launches for 2 calls")
+        if kernels.LAUNCHES["K2"] - before != 2:
+            fail(f"K2 {name}: {kernels.LAUNCHES['K2'] - before} launches for 2 calls")
         ref, ref_xyz = depth_cuda.plain_preprocess(d, K_)
         row = {"case": name, "shape": list(d.shape), "xyz": K_ is not None,
                "valid_in": int(((d >= 0.001) & (d < 100)).sum()), "valid_out": int((ref > 0).sum()),
@@ -698,19 +699,13 @@ def check_pose(name, pose, gt, mesh, diameter, metrics, gate=ADDS_GATE):
             "add_mm": add * 1000, "add_of_diameter": add / diameter}
 
 
-def launch_counts(raster_cuda):
+def launch_counts():
     """Every card kernel's launch count: K1s and K1r, and K2."""
-    from foundationpose_tpu_torch.ops import depth_cuda
-
-    return {**raster_cuda.LAUNCHES, **depth_cuda.LAUNCHES}
+    return dict(kernels.LAUNCHES)
 
 
-def reset_launches(raster_cuda):
-    from foundationpose_tpu_torch.ops import depth_cuda
-
-    for counts in (raster_cuda.LAUNCHES, depth_cuda.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+def reset_launches():
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
 
 
 def hold_k2(counts, n, what):
@@ -720,12 +715,12 @@ def hold_k2(counts, n, what):
         FAILURES.append(f"{what} launched K2 {counts['K2']} times, expected {n}")
 
 
-def expect_launches(raster_cuda, before, n, what, k2=None):
+def expect_launches(before, n, what, k2=None):
     """K1s and K1r must have been launched ``n`` times each since ``before``
     (``n=None``: as often as each other, and at least once), and K2 ``k2``
     times (None: not held). Returns the three kernels' counts."""
-    got = {k: n_now - before[k] for k, n_now in launch_counts(raster_cuda).items()}
-    k1 = [got[k] for k in raster_cuda.LAUNCHES]
+    got = {k: n_now - before[k] for k, n_now in launch_counts().items()}
+    k1 = [got["K1s"], got["K1r"]]
     if n is None:
         if len(set(k1)) != 1 or min(k1) < 1:
             fail(f"{what} launched {got}, expected K1s and K1r equally often, at least once")
@@ -753,14 +748,13 @@ def timed(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def drive_counted(raster_cuda, torch, fn, n, what, k2=None):
+def drive_counted(torch, fn, n, what, k2=None):
     """Run ``fn`` with the kernels' launch counts set to 0 just before and
     read just after; K1s and K1r must then stand at ``n``, K2 at ``k2``.
     Returns (result, ms, counts)."""
-    reset_launches(raster_cuda)
+    reset_launches()
     out, ms = timed(torch, fn)
-    counts = expect_launches(raster_cuda, dict.fromkeys(launch_counts(raster_cuda), 0), n, what,
-                             k2)
+    counts = expect_launches(dict.fromkeys(launch_counts(), 0), n, what, k2)
     PER_CALL[re.sub(r" frame \d+", "", what)] = counts
     return out, ms, counts
 
@@ -771,8 +765,8 @@ def add_counts(total, counts, times=1):
     return total
 
 
-def run_funnel(torch, demo, metrics, raster_cuda, scene, big, big_args, full_warm_ms,
-               big_full_warm_ms, smi):
+def run_funnel(torch, demo, metrics, scene, big, big_args, full_warm_ms, big_full_warm_ms,
+               smi):
     """``register`` with the documented funnel on the demo scene (gated like
     the full schedule), then with a decimated coarse mesh on the 4096-face
     textured object (time and launches only, as for its full schedule)."""
@@ -784,7 +778,7 @@ def run_funnel(torch, demo, metrics, raster_cuda, scene, big, big_args, full_war
     # 1 coarse refine + 2 for the coarse hybrid score, 4 fine + 2, 2 polish + 2
     what = "funnel register (1 + 2 coarse, 4 + 2 fine, 2 + 2 polish render calls)"
     pose, first_ms, counts = drive_counted(
-        raster_cuda, torch, lambda: est.register(*reg_args), 13, what, k2=1)
+        torch, lambda: est.register(*reg_args), 13, what, k2=1)
     err = check_pose("register_funnel", pose, scene["gt"], scene["mesh"], est.diameter, metrics)
     pose2, warm_ms = timed(torch, lambda: est.register(*reg_args))
     check_pose("register_funnel (warm repeat)", pose2, scene["gt"], scene["mesh"],
@@ -798,7 +792,7 @@ def run_funnel(torch, demo, metrics, raster_cuda, scene, big, big_args, full_war
     if not f_coarse < f_full:
         fail(f"funnel_coarse_faces gave no smaller mesh: {f_coarse} vs {f_full} faces")
     pose_big, big_first_ms, big_counts = drive_counted(
-        raster_cuda, torch, lambda: est_big.register(*big_args), 13, what + ", 4096-face mesh",
+        torch, lambda: est_big.register(*big_args), 13, what + ", 4096-face mesh",
         k2=1)
     pose_big2, big_warm_ms = timed(torch, lambda: est_big.register(*big_args))
     for p_ in (pose_big, pose_big2):
@@ -819,7 +813,7 @@ def run_funnel(torch, demo, metrics, raster_cuda, scene, big, big_args, full_war
     return total
 
 
-def run_geometric(torch, demo, metrics, raster_cuda, scene, frames_in, smi):
+def run_geometric(torch, demo, metrics, scene, frames_in, smi):
     """Geometric mode with the ``run_pose`` schedule: ``register`` (10 ICP
     iterations, 8 more on the top 8), then the tracked frames. Every ICP
     iteration and every score renders with normals."""
@@ -829,7 +823,7 @@ def run_geometric(torch, demo, metrics, raster_cuda, scene, frames_in, smi):
         fail("geometric path is not at the run_pose schedule and full width")
     reg_args = (scene["K"], scene["rgb"], scene["depth"], scene["mask"])
     pose, first_ms, counts = drive_counted(
-        raster_cuda, torch, lambda: est.register(*reg_args), 20,
+        torch, lambda: est.register(*reg_args), 20,
         "geometric register (10 + 1 + 8 + 1 render calls)", k2=1)
     err = check_pose("register_geometric", pose, scene["gt"], scene["mesh"], est.diameter,
                      metrics, ADDS_GATE_GEOMETRIC)
@@ -845,7 +839,7 @@ def run_geometric(torch, demo, metrics, raster_cuda, scene, frames_in, smi):
     frames = []
     for f, (gt_f, rgb_f, depth_f) in enumerate(frames_in):
         pose_f, ms, n = drive_counted(
-            raster_cuda, torch, lambda: est.track_one(rgb_f, depth_f, scene["K"]), 3,
+            torch, lambda: est.track_one(rgb_f, depth_f, scene["K"]), 3,
             f"geometric track frame {f} (2 + 1 render calls)", k2=1)
         err_f = check_pose(f"track_geometric frame {f}", pose_f, gt_f, scene["mesh"],
                            est.diameter, metrics, ADDS_GATE_GEOMETRIC)
@@ -984,7 +978,7 @@ def run_multi(torch, demo, metrics, raster, raster_cuda, scene, smi):
     tracker.set_poses(start)
     shapes = compare_multi_shapes(torch, raster, raster_cuda, tracker, meshes, names, Ks)
     out, first_ms, counts = drive_counted(
-        raster_cuda, torch, lambda: tracker.track(rgbs, depths, Ks, iteration=2), 8,
+        torch, lambda: tracker.track(rgbs, depths, Ks, iteration=2), 8,
         "multi-object step (4 objects x 2 iterations)", k2=len(meshes))
     tracker.set_poses(start)
     out2, warm_ms = timed(torch, lambda: tracker.track(rgbs, depths, Ks, iteration=2))
@@ -1002,10 +996,10 @@ def run_multi(torch, demo, metrics, raster, raster_cuda, scene, smi):
         trk.set_poses(start)
         if not plain:
             return trk.track(rgbs, depths, Ks, iteration=2)
-        before = launch_counts(raster_cuda)
+        before = launch_counts()
         with plain_rasterizer(raster, raster_cuda):
             poses = trk.track(rgbs, depths, Ks, iteration=2)
-        expect_launches(raster_cuda, before, 0, "multi-object step through the plain rasterizer")
+        expect_launches(before, 0, "multi-object step through the plain rasterizer")
         return poses
 
     # the step's time once more from the slices of the stacked layout (every
@@ -1057,7 +1051,7 @@ def run_multi(torch, demo, metrics, raster, raster_cuda, scene, smi):
     return add_counts({}, counts)
 
 
-def run_streaming(torch, metrics, raster_cuda, est, chain, scene, frames_in, smi):
+def run_streaming(torch, metrics, est, chain, scene, frames_in, smi):
     """The tracked frames through ``track_one(sync=False)`` from the
     registered pose, against the same frames through ``sync=True``. The
     streaming calls run under ``set_sync_debug_mode("error")``: any
@@ -1073,7 +1067,7 @@ def run_streaming(torch, metrics, raster_cuda, est, chain, scene, frames_in, smi
 
     def run(sync):
         est.pose_last = chain
-        reset_launches(raster_cuda)
+        reset_launches()
         host_ms, outs = [], []
         torch.cuda.synchronize()
         t_all = time.perf_counter()
@@ -1087,7 +1081,7 @@ def run_streaming(torch, metrics, raster_cuda, est, chain, scene, frames_in, smi
     synced, sync_ms, t_all = run(True)
     last_synced = est.pose_last.copy()
     sync_total_ms = (time.perf_counter() - t_all) * 1e3
-    sync_counts = expect_launches(raster_cuda, dict.fromkeys(launch_counts(raster_cuda), 0),
+    sync_counts = expect_launches(dict.fromkeys(launch_counts(), 0),
                                   4 * len(frames_in), "tracking, sync=True", len(frames_in))
 
     before_mode = torch.cuda.get_sync_debug_mode()
@@ -1099,7 +1093,7 @@ def run_streaming(torch, metrics, raster_cuda, est, chain, scene, frames_in, smi
         torch.cuda.set_sync_debug_mode(before_mode)
     last_streamed = est.pose_last.copy()  # waits for the chain
     stream_total_ms = (time.perf_counter() - t_all) * 1e3
-    counts = expect_launches(raster_cuda, dict.fromkeys(launch_counts(raster_cuda), 0),
+    counts = expect_launches(dict.fromkeys(launch_counts(), 0),
                              4 * len(frames_in), "tracking, sync=False", len(frames_in))
     # ---- the same proof from the profiler's record of CUDA runtime calls made
     # while two more frames are enqueued: none may be a synchronise or a
@@ -1213,7 +1207,7 @@ def sync_debug_error(torch):
         torch.cuda.set_sync_debug_mode(before)
 
 
-def run_track_graph(torch, demo, metrics, raster_cuda, scene, smi):
+def run_track_graph(torch, demo, metrics, scene, smi):
     """A tracked frame's refine and score as CUDA graphs against the same
     calls run eagerly. 30 frames (``TRACK_GRAPH_STEPS`` steps of the demo's
     motion, played forward and then back as the benchmark's orbit plays its
@@ -1256,16 +1250,16 @@ def run_track_graph(torch, demo, metrics, raster_cuda, scene, smi):
         est.refiner.refine = keeper(est.refiner.refine)
         est.scorer.score = keeper(est.scorer.score)
         chain, ms = [], []
-        reset_launches(raster_cuda)
+        reset_launches()
         torch.cuda.synchronize()
         t_all = time.perf_counter()
         try:
             for f, (_, rgb_f, depth_f) in enumerate(frames):
                 strict[0] = strict_from is not None and f >= strict_from
                 if sync:
-                    before = launch_counts(raster_cuda)
+                    before = launch_counts()
                     _, t = timed(torch, lambda: est.track_one(rgb_f, depth_f, K))
-                    expect_launches(raster_cuda, before, 4, f"track_graph frame {f}", k2=1)
+                    expect_launches(before, 4, f"track_graph frame {f}", k2=1)
                 else:
                     t0 = time.perf_counter()
                     est.track_one(rgb_f, depth_f, K, sync=False)
@@ -1276,7 +1270,7 @@ def run_track_graph(torch, demo, metrics, raster_cuda, scene, smi):
         finally:
             del est.refiner.refine, est.scorer.score
         total_ms = (time.perf_counter() - t_all) * 1e3
-        counts = expect_launches(raster_cuda, dict.fromkeys(launch_counts(raster_cuda), 0),
+        counts = expect_launches(dict.fromkeys(launch_counts(), 0),
                                  4 * len(frames), f"track_graph, {len(frames)} frames", len(frames))
         outs = [torch.cat([c.reshape(-1) for c in chain])] + [o.reshape(-1) for o in kept]
         return {"outs": outs, "ms": ms, "total_ms": total_ms, "counts": counts,
@@ -1289,7 +1283,7 @@ def run_track_graph(torch, demo, metrics, raster_cuda, scene, smi):
     eager2 = run(None)
     cache = GraphCache()
     graphed = run(cache, strict_from=2)
-    kernels = sorted(g.kernels for g in cache._graphs.values() if hasattr(g, "kernels"))
+    graph_kernels = sorted(g.kernels for g in cache._graphs.values() if hasattr(g, "kernels"))
     streamed = run(cache, sync=False)
     spread = gap(eager["outs"], eager2["outs"])
     graph_gap = gap(eager["outs"], graphed["outs"])
@@ -1299,13 +1293,14 @@ def run_track_graph(torch, demo, metrics, raster_cuda, scene, smi):
     stream_gap = gap(graphed["outs"][:1], streamed["outs"][:1])
     if stream_gap > 1e-5:
         FAILURES.append(f"track_graph: streamed graphs differ from sync by {stream_gap:.3g}")
-    if len(kernels) != 2:
-        fail(f"track_graph: the cache holds {len(kernels)} graphs, expected refine and score")
+    if len(graph_kernels) != 2:
+        fail(f"track_graph: the cache holds {len(graph_kernels)} graphs, expected refine and "
+             "score")
     err = check_pose("track_graph last frame", graphed["last"] @ est.get_tf_to_centered_mesh(),
                      frames[-1][0], scene["mesh"], est.diameter, metrics)
     say("track_graph", frames=len(frames), bit_for_bit=graph_gap == 0.0,
         max_abs_diff_graph_to_eager=graph_gap, max_abs_diff_eager_to_eager=spread,
-        max_abs_diff_streamed_to_sync=stream_gap, graph_kernels=kernels,
+        max_abs_diff_streamed_to_sync=stream_gap, graph_kernels=graph_kernels,
         sync_debug_mode="error round every refine and score replay (frames 2 on)",
         eager_ms=eager["ms"], graph_ms=graphed["ms"],
         median_eager_ms=float(np.median(eager["ms"][2:])),
@@ -1401,12 +1396,12 @@ def run_evalsuite(torch, metrics, raster, raster_cuda, smi):
 
     renders = []
     for spec in scenes.build_suite():
-        before = launch_counts(raster_cuda)
+        before = launch_counts()
         with plain_rasterizer(raster, raster_cuda):
             rp = scenes.SceneRenderer(spec, device="cuda")
             gt = rp.register_poses()[0]
             prgb, pdepth, pvis, _ = rp.render(gt)
-        expect_launches(raster_cuda, before, 0, "SceneRenderer through the plain rasterizer")
+        expect_launches(before, 0, "SceneRenderer through the plain rasterizer")
         rgb, depth, vis, _ = scenes.SceneRenderer(spec, device="cuda").render(gt)
         same = vis == pvis
         row = {"scene": spec.name, "mask_agree": float(same.mean()),
@@ -1442,7 +1437,7 @@ def run_evalsuite(torch, metrics, raster, raster_cuda, smi):
                                               for sp in real_suite(quick)]
     try:
         res, ms, counts = drive_counted(
-            raster_cuda, torch, lambda: harness.run_accuracy(
+            torch, lambda: harness.run_accuracy(
                 modes=("geometric", "learned_hybrid"), scene_names=EVAL_SCENES, device="cuda"),
             None, "evalsuite harness, 4 scenes x (geometric + learned_hybrid)")
     finally:
@@ -1621,7 +1616,7 @@ def run_io_apps(torch, demo, metrics, raster, raster_cuda, smi):
 
         # ---- eval_bop: register frame 0, track frames 1-2 (10 + 8 ICP, 3 per frame)
         summary, ms, counts = drive_counted(
-            raster_cuda, torch, lambda: eval_bop.evaluate_scene(
+            torch, lambda: eval_bop.evaluate_scene(
                 get_bop_reader(scene_dir), 1, mode="geometric", track=True, device="cuda"),
             20 + 3 * 2, "eval_bop.evaluate_scene (geometric, track)", k2=3)
         paths["eval_bop.evaluate_scene geometric + track"] = counts
@@ -1638,7 +1633,7 @@ def run_io_apps(torch, demo, metrics, raster, raster_cuda, smi):
         out = {}
         for stream in (True, False):
             (res, summ), ms, counts = drive_counted(
-                raster_cuda, torch, lambda: run_track.track_video(
+                torch, lambda: run_track.track_video(
                     YcbineoatReader(video), mesh=target, mode="geometric", stream=stream,
                     device="cuda"),
                 20 + 5 * 5, f"run_track.track_video stream={stream}")
@@ -1674,7 +1669,7 @@ def run_io_apps(torch, demo, metrics, raster, raster_cuda, smi):
                                             for i in range(10)}})):
             d = os.path.join(tmp, f"pose_out_debug{debug or 1}")
             argv = base + ["--out-dir", d] + ([] if debug is None else ["--debug", str(debug)])
-            pose, ms, counts = drive_counted(raster_cuda, torch, lambda: run_pose.main(argv), n,
+            pose, ms, counts = drive_counted(torch, lambda: run_pose.main(argv), n,
                                              f"run_pose.main --debug {debug or 1}", k2=k2)
             paths[f"run_pose.main --debug {debug or 1}"] = counts
             err = check_pose(f"run_pose --debug {debug or 1}", pose, gts[0], target, diameter,
@@ -1698,7 +1693,7 @@ def run_io_apps(torch, demo, metrics, raster, raster_cuda, smi):
         iou = float((mask.astype(bool) & true).sum() / max((mask.astype(bool) | true).sum(), 1))
         est = demo.build_estimator(target, device="cuda", mode="geometric")
         pose, ms, counts = drive_counted(
-            raster_cuda, torch, lambda: est.register(reader.K, rgb1, depth1, mask), 20,
+            torch, lambda: est.register(reader.K, rgb1, depth1, mask), 20,
             "depth_box_fallback mask -> geometric register", k2=1)
         paths["depth_box_fallback + register"] = counts
         gate_rows["depth_box_fallback"] = {"iou_with_true_mask": iou, "ms": ms, "launches": counts,
@@ -1795,7 +1790,7 @@ def run_train(torch, raster, raster_cuda, scene, smi):
                                                kw, {**tag, "with_normal": False}, scratch))
             timed_rows.append(time_render(raster, raster_cuda, torch, f"train {kind} {app}",
                                           p["mt"], hyp, K, tfs, (S, S), False, cull=False))
-    kernels = {"n_cases": len(rows),
+    train_kernels = {"n_cases": len(rows),
                "max_winner_flips_of_common": max(r["winner_flips_of_common"] for r in rows),
                "min_mask_agree": min(r["mask_agree"] for r in rows),
                "winners_lost_to_binning": sum(r["winners_lost_to_binning"] for r in rows),
@@ -1832,10 +1827,10 @@ def run_train(torch, raster, raster_cuda, scene, smi):
     step_rows = {}
     for kind in ("refiner", "scorer"):
         data_k, loss_k = one_step(kind, plain=False)
-        before = launch_counts(raster_cuda)
+        before = launch_counts()
         with plain_rasterizer(raster, raster_cuda):
             data_p, loss_p = one_step(kind, plain=True)
-        expect_launches(raster_cuda, before, 0, f"{kind} step through the plain rasterizer")
+        expect_launches(before, 0, f"{kind} step through the plain rasterizer")
         row = {"loss_kernels": loss_k, "loss_plain": loss_p,
                "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
                **compare_train_batches(torch, data_k, data_p, p["diameter"] / 2)}
@@ -1851,12 +1846,12 @@ def run_train(torch, raster, raster_cuda, scene, smi):
     # calls per step (hypotheses, ground truth, the distractor)
     n = 3 * TRAIN_STEPS
     (net_r, stats_r), ms_r, counts_r = drive_counted(
-        raster_cuda, torch, lambda: agnostic.train_agnostic_refiner(
+        torch, lambda: agnostic.train_agnostic_refiner(
             prepped, K_TRAIN, steps=TRAIN_STEPS, batch=TRAIN_BATCH["refiner"], input_size=S,
             chunk=TRAIN_CHUNK), n, f"train_agnostic_refiner ({TRAIN_STEPS} steps x 3 render calls)",
         k2=0)
     (net_s, stats_s), ms_s, counts_s = drive_counted(
-        raster_cuda, torch, lambda: agnostic.train_agnostic_scorer(
+        torch, lambda: agnostic.train_agnostic_scorer(
             prepped, K_TRAIN, steps=TRAIN_STEPS, n_hyp=TRAIN_BATCH["scorer"], input_size=S,
             chunk=TRAIN_CHUNK), n, f"train_agnostic_scorer ({TRAIN_STEPS} steps x 3 render calls)",
         k2=0)
@@ -1881,12 +1876,12 @@ def run_train(torch, raster, raster_cuda, scene, smi):
         snap = os.path.join(tmp, "resume_refiner.pt")
         kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH["refiner"], input_size=S,
                   chunk=TRAIN_CHUNK, resume_path=snap, ckpt_every=TRAIN_CHUNK)
-        before = launch_counts(raster_cuda)
+        before = launch_counts()
         _, cut = agnostic.train_agnostic_refiner(prepped, K_TRAIN, stop_after=2, **kw)
         at_cut = torch.load(snap, map_location="cpu", weights_only=True)
         _, resumed = agnostic.train_agnostic_refiner(prepped, K_TRAIN, stop_after=1, **kw)
         after = torch.load(snap, map_location="cpu", weights_only=True)
-        add_counts(total, expect_launches(raster_cuda, before, 3 * 3 * TRAIN_CHUNK,
+        add_counts(total, expect_launches(before, 3 * 3 * TRAIN_CHUNK,
                                           "cut and resumed refiner run", k2=0))
     resume = {"done_at_cut": at_cut["done"], "count_at_cut": int(at_cut["opt"]["count"]),
               "done_after_resume": after["done"], "count_after_resume": int(after["opt"]["count"]),
@@ -1908,7 +1903,7 @@ def run_train(torch, raster, raster_cuda, scene, smi):
                               device="cuda")
     reg_args = (scene["K"], scene["rgb"], scene["depth"], scene["mask"])
     pose, reg_ms, reg_counts = drive_counted(
-        raster_cuda, torch, lambda: est.register(*reg_args), 11,
+        torch, lambda: est.register(*reg_args), 11,
         "register with the freshly trained checkpoint (5 + 2 + 2 + 2 render calls)", k2=1)
     if pose.shape != (4, 4) or not np.isfinite(pose).all():
         fail("train: register with the freshly trained checkpoint gave no finite pose")
@@ -1925,7 +1920,7 @@ def run_train(torch, raster, raster_cuda, scene, smi):
                                               for sp in real_suite(quick)]
     try:
         res, h_ms, h_counts = drive_counted(
-            raster_cuda, torch, lambda: harness.run_accuracy(
+            torch, lambda: harness.run_accuracy(
                 modes=("learned",), agnostic_dir=None, device="cuda", **TRAIN_HARNESS),
             None, "evalsuite harness, learned fallback (per-scene training)")
     finally:
@@ -1956,14 +1951,14 @@ def run_train(torch, raster, raster_cuda, scene, smi):
     say("train", corpus={"n_meshes": TRAIN_MESHES, "seed": 7, "max_faces": 2048,
                          "textured": sum(p_["textured"] for p_ in prepped),
                          "picked_faces": {k: faces(v) for k, v in picked.items()}},
-        kernels_at_training_shapes=kernels, times_training_shapes=timed_rows,
+        kernels_at_training_shapes=train_kernels, times_training_shapes=timed_rows,
         one_step_against_plain=step_rows, loss_rtol=TRAIN_LOSS_RTOL, trainers=trainers,
         resume=resume, serve=serve, harness_fallback=fallback, launches=total,
         gate="K1s/K1r at the kernel gates; one step's batches within the kernel gates on "
              f">= 0.999 of elements and its loss within {TRAIN_LOSS_RTOL} relative; every "
              "loss finite, the last chunk's mean below the first's; 3 + 3 launches per step",
         card=smi)
-    return total, {"kernels": kernels, "times": timed_rows}
+    return total, {"kernels": train_kernels, "times": timed_rows}
 
 
 FIELD_VIEWS = 60         # run_field's --n-frames default
@@ -2101,12 +2096,12 @@ def run_field_phase(torch, demo, raster, raster_cuda, smi):
                           masks[i].astype(np.uint8) * 255)
             np.savetxt(os.path.join(video, "annotated_poses", f"{i:04d}.txt"), ob_in_cams[i])
         out_dir = os.path.join(tmp, "out")
-        reset_launches(raster_cuda)
+        reset_launches()
         (mesh_r, opt_poses, runner), main_ms = timed(torch, lambda: run_field.main(
             ["--data-dir", video, "--save-dir", out_dir, "--n-step", str(FIELD_N_STEP),
              "--device", "cuda"]))
         bake_calls = bake_render_calls(texture, len(mesh_r.faces), hw)
-        bake_launches = expect_launches(raster_cuda, dict.fromkeys(launch_counts(raster_cuda), 0),
+        bake_launches = expect_launches(dict.fromkeys(launch_counts(), 0),
                                         bake_calls, "run_field (texture bake render calls)", k2=0)
         PER_CALL["run_field: texture bake (one per render call)"] = bake_launches
         artifacts = sorted(os.listdir(out_dir))
@@ -2180,7 +2175,7 @@ def run_field_phase(torch, demo, raster, raster_cuda, smi):
         return float(np.abs(a["rgb"][0].cpu().numpy()[m] - ref).mean()), int(m.sum())
 
     gt_bake, gt_bake_ms, gt_counts = drive_counted(
-        raster_cuda, torch, lambda: texture.bake_texture(mesh, images, masks, cams, K,
+        torch, lambda: texture.bake_texture(mesh, images, masks, cams, K,
                                                          tex_res=1024, device="cuda"),
         bake_render_calls(texture, len(mesh.faces), hw),
         "texture bake of the true mesh (one launch per render call)", k2=0)
@@ -2332,7 +2327,7 @@ def run_slam_phase(torch, demo, raster, raster_cuda, smi):
     undo = [timer.wrap(tracker, "retrain", "retrain"),
             timer.wrap(ba_mod, "build_ba_problem", "BA round: problem (host numpy)"),
             timer.wrap(ba_mod, "bundle_adjust", "BA round: Gauss-Newton (device)")]
-    reset_launches(raster_cuda)
+    reset_launches()
     try:
         tracker.init(rgbs[0], depths[0], masks[0])
         snapshots = {}
@@ -2347,9 +2342,9 @@ def run_slam_phase(torch, demo, raster, raster_cuda, smi):
         snapshot("bootstrap depth-map mesh")
         for f in range(1, SLAM_FRAMES):
             n_kf, retrain_ms = len(tracker.keyframes), timer.ms.get("retrain", 0.0)
-            before = launch_counts(raster_cuda)
+            before = launch_counts()
             _, ms = timed(torch, lambda: tracker.step(rgbs[f], depths[f], mask=masks[f]))
-            n = expect_launches(raster_cuda, before, n_iter,
+            n = expect_launches(before, n_iter,
                                 f"slam step frame {f} ({n_iter} ICP render calls)", k2=1)
             est = tracker.cam_in_ob
             row = {"frame": f, "ms": ms, "launches": n,
@@ -2378,10 +2373,10 @@ def run_slam_phase(torch, demo, raster, raster_cuda, smi):
             kf["cam_in_ob"] = c.copy()
         ba_problem = ba_mod.build_ba_problem(depths[kf_frames], masks[kf_frames], cams_noisy, K,
                                              n_landmarks=SLAM_BA["n_landmarks"])
-        before = launch_counts(raster_cuda)
+        before = launch_counts()
         ba_before = timer.ms
         cost, ba_ms = timed(torch, lambda: tracker.run_pose_graph_ba(**SLAM_BA))
-        expect_launches(raster_cuda, before, 0, "run_pose_graph_ba (renders nothing)", k2=0)
+        expect_launches(before, 0, "run_pose_graph_ba (renders nothing)", k2=0)
         refined = np.stack([kf["cam_in_ob"] for kf in tracker.keyframes])
 
         def errs(cams):
@@ -2397,14 +2392,14 @@ def run_slam_phase(torch, demo, raster, raster_cuda, smi):
 
         # ---- final field, texture bake through K1
         n_kf = len(tracker.keyframes)
-        before = launch_counts(raster_cuda)
+        before = launch_counts()
         (textured, optimized), fin_ms = timed(torch, lambda: tracker.finalize(bake=True,
                                                                                tex_res=1024))
         calls = -(-n_kf // texture._views_per_call(len(textured.faces), hw, texture.BINS_BUDGET))
-        bake_launches = expect_launches(raster_cuda, before, calls,
+        bake_launches = expect_launches(before, calls,
                                         "finalize (texture bake render calls)", k2=0)
         PER_CALL["ModelFreeTracker.finalize: texture bake (one per render call)"] = bake_launches
-        path_launches = launch_counts(raster_cuda)  # read just after the path
+        path_launches = launch_counts()  # read just after the path
         hold_k2(path_launches, len(steps), "ModelFreeTracker path (init preprocesses no frame)")
     finally:
         for u in undo:
@@ -2570,10 +2565,10 @@ def md_register(torch, demo, raster, raster_cuda, multihost, mesh, scene, out, r
                 est.refiner, est.scorer = float32_nets(est.refiner, est.scorer)
             est.register(*args)  # warm: cuDNN's algorithm choice, the allocator
             multihost.sync_hosts()
-            reset_launches(raster_cuda)
+            reset_launches()
             pose, ms = timed(torch, lambda: est.register(*args))
             tag = f"{kind}_{dtype}"
-            out[f"{tag}_launches"] = launch_counts(raster_cuda)
+            out[f"{tag}_launches"] = launch_counts()
             out[f"{tag}_ms"] = ms
             res.update({f"{tag}_pose": pose, f"{tag}_poses": est.poses,
                         f"{tag}_scores": est.scores, f"{tag}_order": est.hyp_order})
@@ -2674,12 +2669,12 @@ def md_dp_refiner(torch, raster, raster_cuda, mesh, out, res):
             grads.append(torch.cat([q.grad.reshape(-1) for q in net.parameters()]))
         return torch.stack(losses).tolist(), grads, net, opt
 
-    reset_launches(raster_cuda)
+    reset_launches()
     l1, g1, _, _ = run(None)
-    out["dp_one_launches"] = launch_counts(raster_cuda)
-    reset_launches(raster_cuda)
+    out["dp_one_launches"] = launch_counts()
+    reset_launches()
     l2, g2, net, opt = run(mesh)
-    out["dp_sharded_launches"] = launch_counts(raster_cuda)
+    out["dp_sharded_launches"] = launch_counts()
     # step 1's gradient once more in this process alone at the sharded batch
     # size: the sum over the world's slices of the unsharded batch of each
     # slice's gradient. The sharded gradient differs from it only by the
@@ -2797,9 +2792,9 @@ def md_multi(torch, demo, raster, raster_cuda, mesh, scene, out, res):
         tracker.set_poses(start)
         tracker.track(rgbs, depths, Ks, iteration=2)  # warm
         tracker.set_poses(start)
-        reset_launches(raster_cuda)
+        reset_launches()
         poses, ms = timed(torch, lambda: tracker.track(rgbs, depths, Ks, iteration=2))
-        out[f"multi_{kind}_launches"] = launch_counts(raster_cuda)
+        out[f"multi_{kind}_launches"] = launch_counts()
         out[f"multi_{kind}_ms"] = ms
         res[f"multi_{kind}_poses"] = poses
     mine = tracker.mine
@@ -3041,8 +3036,7 @@ def md_gates(i, x, world, backend):
     return bad
 
 
-def run_multi_device(torch, raster_cuda, ba_problem, smi, field_in, backend="gloo",
-                     world=MD_WORLD):
+def run_multi_device(torch, ba_problem, smi, field_in, backend="gloo", world=MD_WORLD):
     """``world`` ranks (``multihost.initialize(..., backend=backend)``; by
     default two ranks on the one card over gloo), each running every sharded
     program against the same program unsharded (``md_rank``): the
@@ -3166,7 +3160,7 @@ def corners_equal(a, b, tol=1e-6):
         np.abs(a.vertices[a.faces] - b.vertices[b.faces]).max() <= tol)
 
 
-def run_surface_phase(torch, raster_cuda, k1_parts, smi):
+def run_surface_phase(torch, k1_parts, smi):
     """``demo_synthetic.main(["--out-dir", ..., "--frames", "1"])`` on the
     card, launches counted from zero, its seven artefacts checked against
     the scene it renders; ``profile_raster`` at the 4096-face textured shape
@@ -3177,16 +3171,17 @@ def run_surface_phase(torch, raster_cuda, k1_parts, smi):
     counts."""
     import tempfile
 
+    from foundationpose_tpu_torch import native
     from foundationpose_tpu_torch.apps import demo_synthetic as demo, profile_raster
     from foundationpose_tpu_torch.core import meshio
     from foundationpose_tpu_torch.io import png
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        reset_launches(raster_cuda)
+        reset_launches()
         err = demo.main(["--out-dir", tmp, "--frames", "1"])
         # scene + frame renders (1 + 1), register (11), one tracked frame (4)
-        launches = expect_launches(raster_cuda, dict.fromkeys(launch_counts(raster_cuda), 0), 17,
+        launches = expect_launches(dict.fromkeys(launch_counts(), 0), 17,
                                    "demo_synthetic --out-dir, 1 frame", k2=2)
         demo_s = time.perf_counter() - t0
         missing = [f for f in demo.ARTEFACTS if not os.path.isfile(os.path.join(tmp, f))]
@@ -3219,20 +3214,20 @@ def run_surface_phase(torch, raster_cuda, k1_parts, smi):
     # loader places every launch function in that this process called, from
     # the first phase to the demo and the timer's whole calls, are the
     # libraries of the sources built with no switch, and no part's
-    specs = raster_cuda.default_specs()
+    specs = {name: kernels.spec(name) for name in kernels.LIBRARIES}
     if any(f.startswith("-D") for _, flags in specs.values() for f in flags):
         fail("surface: the default build defines a switch")
-    expected = {name: os.path.realpath(raster_cuda.library_path(name, *spec))
+    expected = {name: os.path.realpath(native.library_path(name, *spec))
                 for name, spec in specs.items()}
     part_files = {k: os.path.realpath(v) for k, v in k1_parts[2].items() if k not in expected}
-    launched = raster_cuda.launched_libraries()
+    launched = kernels.launched_libraries()
     if launched != {name: {f} for name, f in expected.items()}:
         fail(f"surface: the render calls launched {launched}, not the default build {expected}")
     if set(part_files.values()) & set(expected.values()) or len(part_files) != 4:
         fail(f"surface: the parts' libraries {part_files} are not apart from the default build")
-    timed_full = {"K1s": raster_cuda.library_file(k1_parts[0]["setup+bins"]),
-                  "K1r": raster_cuda.library_file(k1_parts[1]["+staged stores"])}
-    if timed_full != expected:
+    timed_full = {"K1s": kernels.library_file(k1_parts[0]["setup+bins"]),
+                  "K1r": kernels.library_file(k1_parts[1]["+staged stores"])}
+    if timed_full != {k: expected[k] for k in timed_full}:
         fail(f"surface: the parts timer's full kernels {timed_full} are not the ones the "
              f"paths launch {expected}")
     say("surface", demo={"artefacts": checks, "add_s_mm": err * 1000, "launches": launches,
@@ -3266,10 +3261,10 @@ def md_cards(world=4):
     if torch.cuda.device_count() < world:
         fail(f"md_cards({world}) needs {world} cards, found {torch.cuda.device_count()}")
     smi = nvidia_smi_line()
-    raster_cuda.build()
+    kernels.build()
     native.build()
     views = field_views(demo, raster, raster_cuda)
-    run_multi_device(torch, raster_cuda, None, smi, views, backend="nccl", world=world)
+    run_multi_device(torch, None, smi, views, backend="nccl", world=world)
 
 
 def main():
@@ -3302,21 +3297,20 @@ def main():
     t0 = time.perf_counter()
     gxx = subprocess.Popen([sys.executable, "-c", "from foundationpose_tpu_torch import native; "
                             "native.build()"], cwd=os.path.dirname(os.path.abspath(__file__)))
-    # K1s, K1r and their parts (the surface phase times them): every nvcc at once
-    k1_parts = profile_raster.build_parts(raster_cuda.BUILD_LOG)
-    depth_cuda.build()  # K2, into raster_cuda.BUILD_LOG too
+    # every card kernel and K1's parts (the surface phase times them): every nvcc at once
+    k1_parts = profile_raster.build_parts(kernels.BUILD_LOG)
     nvcc_s = time.perf_counter() - t0
     if gxx.wait() != 0:
         fail("the host library native/cluster.cpp did not build (is g++ installed?)")
     native.build()
-    sources = {k: os.path.relpath(src, os.path.dirname(os.path.abspath(__file__)))
-               for k, (src, _) in raster_cuda.LIBRARIES.items()}
+    sources = {k: os.path.relpath(lib.source, os.path.dirname(os.path.abspath(__file__)))
+               for k, lib in kernels.LIBRARIES.items()}
     say("build", kernels=sources, seconds=time.perf_counter() - t0,
         host_library={"source": os.path.relpath(native.SOURCE, os.path.dirname(
             os.path.abspath(__file__))), "compiler": shutil.which("g++"), "flags": native.FLAGS},
         nvcc_seconds=nvcc_s,
         ptxas={k: [l for l in log.splitlines() if "registers" in l or "spill" in l]
-               for k, log in raster_cuda.BUILD_LOG.items()})
+               for k, log in kernels.BUILD_LOG.items()})
 
     scene = demo.make_scene((480, 640), device="cuda")
     k1 = check_kernels(scene, torch)
@@ -3332,11 +3326,11 @@ def main():
         fail(f"main path is not at full width: {n_hyp} hypotheses, "
              f"{est.refiner.cfg.input_size} px")
     reg_args = (scene["K"], scene["rgb"], scene["depth"], scene["mask"])
-    reset_launches(raster_cuda)
-    zero = launch_counts(raster_cuda)
+    reset_launches()
+    zero = launch_counts()
     torch.cuda.reset_peak_memory_stats()
     pose, first_ms = timed(torch, lambda: est.register(*reg_args))
-    reg_launches = expect_launches(raster_cuda, zero, 11, "register (5 + 2 + 2 + 2 render calls)",
+    reg_launches = expect_launches(zero, 11, "register (5 + 2 + 2 + 2 render calls)",
                                    k2=1)
     PER_CALL["register (5 + 2 + 2 + 2 render calls)"] = reg_launches
     reg_err = check_pose("register", pose, scene["gt"], scene["mesh"], est.diameter, metrics)
@@ -3344,14 +3338,14 @@ def main():
 
     frames = []
     for f, (gt_f, rgb_f, depth_f) in enumerate(frames_in):
-        before = launch_counts(raster_cuda)
+        before = launch_counts()
         pose_f, ms = timed(torch, lambda: est.track_one(rgb_f, depth_f, scene["K"]))
-        n = expect_launches(raster_cuda, before, 4, f"track frame {f} (2 + 2 render calls)", k2=1)
+        n = expect_launches(before, 4, f"track frame {f} (2 + 2 render calls)", k2=1)
         PER_CALL["track_one (2 + 2 render calls)"] = n
         err = check_pose(f"track frame {f}", pose_f, gt_f, scene["mesh"], est.diameter, metrics)
         frames.append({"frame": f, "ms": ms, "launches": n, **err})
-    main_path_launches = launch_counts(raster_cuda)  # read just after the main path
-    expect_launches(raster_cuda, zero, 11 + 4 * TRACK_FRAMES, "main path", k2=1 + TRACK_FRAMES)
+    main_path_launches = launch_counts()  # read just after the main path
+    expect_launches(zero, 11 + 4 * TRACK_FRAMES, "main path", k2=1 + TRACK_FRAMES)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
     # warm repeat of register, for timing only (not part of the launch count)
@@ -3380,9 +3374,9 @@ def main():
         raster.make_mesh_tensors(big, device="cuda"), scene["gt"], scene["K"], scene["hw"])
     est_big = demo.build_estimator(big, device="cuda")
     big_args = (scene["K"], big_rgb, big_depth, big_mask)
-    before = launch_counts(raster_cuda)
+    before = launch_counts()
     pose_big, big_first_ms = timed(torch, lambda: est_big.register(*big_args))
-    big_launches = expect_launches(raster_cuda, before, 11, "register on the 4096-face mesh",
+    big_launches = expect_launches(before, 11, "register on the 4096-face mesh",
                                    k2=1)
     pose_big2, big_warm_ms = timed(torch, lambda: est_big.register(*big_args))
     for p_ in (pose_big, pose_big2):
@@ -3402,15 +3396,15 @@ def main():
     by_path = {"learned_hybrid register + track_one": main_path_launches,
                "register on the 4096-face mesh": big_launches}
     by_path["funnel register (demo mesh + 4096-face mesh with coarse LOD)"] = run_funnel(
-        torch, demo, metrics, raster_cuda, scene, big, big_args, warm_ms, big_warm_ms, smi)
+        torch, demo, metrics, scene, big, big_args, warm_ms, big_warm_ms, smi)
     by_path["geometric register + track_one"] = run_geometric(
-        torch, demo, metrics, raster_cuda, scene, frames_in, smi)
+        torch, demo, metrics, scene, frames_in, smi)
     by_path["MultiObjectTracker.track, 4 objects"] = run_multi(
         torch, demo, metrics, raster, raster_cuda, scene, smi)
     by_path["streaming track_one(sync=False)"] = run_streaming(
-        torch, metrics, raster_cuda, est, reg_chain, scene, frames_in, smi)
+        torch, metrics, est, reg_chain, scene, frames_in, smi)
     by_path["track_one, eager against CUDA graphs (30 frames x 4 runs)"] = run_track_graph(
-        torch, demo, metrics, raster_cuda, scene, smi)
+        torch, demo, metrics, scene, smi)
     by_path["evalsuite harness, 4 scenes x (geometric + learned_hybrid)"] = run_evalsuite(
         torch, metrics, raster, raster_cuda, smi)
     _, io_paths = run_io_apps(torch, demo, metrics, raster, raster_cuda, smi)
@@ -3421,9 +3415,9 @@ def main():
         torch, demo, raster, raster_cuda, smi)
     by_path["ModelFreeTracker: init, steps, retrains, pose-graph BA, finalize + bake"], slam_k, \
         ba_problem = run_slam_phase(torch, demo, raster, raster_cuda, smi)
-    by_path.update(run_multi_device(torch, raster_cuda, ba_problem, smi, field_in))
+    by_path.update(run_multi_device(torch, ba_problem, smi, field_in))
     by_path["demo_synthetic --out-dir (render, register, 1 tracked frame)"] = \
-        run_surface_phase(torch, raster_cuda, k1_parts, smi)
+        run_surface_phase(torch, k1_parts, smi)
     all_launches = {}
     for counts in by_path.values():
         add_counts(all_launches, counts)
@@ -3459,7 +3453,7 @@ def main():
                                      "bound_by", "pixel_face_tests")} \
         | {"K1s_bound_ms": bake["K1s_bound"]["bound_ms"],
            "K1r_bound_ms": bake["K1r_bound"]["bound_ms"]}
-    kernels = [{
+    kernel_rows = [{
         "name": "K1s face setup and tile binning",
         "source": sources["K1s"],
         "replaces": "foundationpose_tpu/ops/raster_pallas.py:337",
@@ -3534,7 +3528,7 @@ def main():
         "plain_ms": k2["times"][0]["plain_ms"], "bound_ms": k2["times"][0]["bound_ms"],
         "bound_by": k2["times"][0]["bound_by"], **common, "shape": k2["cases"][0]["case"],
     }]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

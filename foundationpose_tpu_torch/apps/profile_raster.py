@@ -25,7 +25,7 @@ on the same inputs (the setup's tables and the attribute pass's outputs bit
 for bit, the depth part on the same pixels, its median pixel within 5e-3
 relative, background all zero), and it fails if one disagrees. No path of
 the package loads a part's library: the render calls launch
-``raster_cuda``'s own build, with no switch defined.
+``ops/kernels.py``'s own build, with no switch defined.
 Needs a CUDA device; prints the card's name and power limit first.
 ``--out`` also writes the results as JSON: a run of every shape prints more
 than a remote run's captured output keeps.
@@ -40,7 +40,8 @@ import sys
 import numpy as np
 import torch
 
-from foundationpose_tpu_torch.ops import raster_bounds, raster_cuda
+from foundationpose_tpu_torch import native
+from foundationpose_tpu_torch.ops import kernels, raster_bounds, raster_cuda
 from foundationpose_tpu_torch.utils.profiling import device_ms, event_ms, nvidia_smi_line
 
 K1S_SWITCH = {"setup": "-DK1S_PART=1"}
@@ -90,22 +91,20 @@ SHAPES = {
 
 
 def build_parts(log=None):
-    """Build the default kernels and every part side by side. Returns
-    ({part: K1s launch function}, {part: K1r launch function}, {library name:
-    path}); the last part of each is the default build ``raster_cuda``
-    launches."""
-    specs = raster_cuda.default_specs()
-    for part, flag in K1S_SWITCH.items():
-        src, flags = specs["K1s"]
-        specs[f"K1s_{part}"] = (src, flags + [flag])
-    for part, flag in K1R_SWITCH.items():
-        src, flags = specs["K1r"]
-        specs[f"K1r_{part.strip('+').replace('+', '_')}"] = (src, flags + [flag])
-    paths = raster_cuda.compile_libraries(specs, {} if log is None else log)
-    libs = raster_cuda.build()
-    k1s = {part: raster_cuda.bind_setup(paths[f"K1s_{part}"]) for part in K1S_SWITCH}
+    """Build every card library of ``ops/kernels.py`` and every part side by
+    side. Returns ({part: K1s launch function}, {part: K1r launch function},
+    {library name: path}); the last part of each is the default build the
+    render calls launch."""
+    specs = {name: kernels.spec(name) for name in kernels.LIBRARIES}
+    for kernel, switches in (("K1s", K1S_SWITCH), ("K1r", K1R_SWITCH)):
+        src, flags = specs[kernel]
+        for part, flag in switches.items():
+            specs[f"{kernel}_{part.strip('+').replace('+', '_')}"] = (src, flags + [flag])
+    paths = native.compile_libraries(kernels.nvcc(), specs, {} if log is None else log)
+    libs = kernels.build()
+    k1s = {part: kernels.load("K1s", paths[f"K1s_{part}"]) for part in K1S_SWITCH}
     k1s["setup+bins"] = libs["K1s"]
-    k1r = {part: raster_cuda.bind_raster(paths[f"K1r_{part.strip('+').replace('+', '_')}"])
+    k1r = {part: kernels.load("K1r", paths[f"K1r_{part.strip('+').replace('+', '_')}"])
            for part in K1R_SWITCH}
     k1r["+staged stores"] = libs["K1r"]
     return k1s, k1r, paths

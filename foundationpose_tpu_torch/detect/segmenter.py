@@ -21,8 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from foundationpose_tpu_torch import resolve_device
-from foundationpose_tpu_torch.engine.estimator import _upload
+from foundationpose_tpu_torch import resolve_device, upload
 from foundationpose_tpu_torch.models import sam as sam_mod
 from foundationpose_tpu_torch.utils.profiling import span
 
@@ -62,12 +61,12 @@ class BoxSegmenter:
             S = self.config.image_size
             h, w = preprocess_shape(H, W, S)
             with span("sam.preprocess"):
-                img = _upload(rgb, self.device).permute(2, 0, 1)[None].float()
+                img = upload(rgb, self.device).permute(2, 0, 1)[None].float()
                 img = F.interpolate(img, (h, w), mode="bilinear", align_corners=False,
                                     antialias=True)
                 img = F.pad((img - self.pixel_mean) / self.pixel_std, (0, S - w, 0, S - h))
                 scale = np.array([w / W, h / H, w / W, h / H], np.float32)
-                boxes = _upload(np.asarray(box, np.float32) * scale, self.device)[None]
+                boxes = upload(np.asarray(box, np.float32) * scale, self.device)[None]
             emb = self.net.encode(img)
             logits, iou = self.net.decode(emb, boxes)
             with span("sam.postprocess"):

@@ -45,7 +45,7 @@ amplify it (scores up to 0.028 apart), while float32 nets agree within
 1.2e-7. A batch or frame that does not split evenly over the processes is
 processed whole on every one.
 
-Host <-> device traffic goes through two helpers, ``_upload`` (pinned memory,
+Host <-> device traffic goes through two helpers, ``upload`` (pinned memory,
 asynchronous copy) and ``_PoseDownload`` (pinned buffer + an event recorded
 after the copy), so that ``track_one(sync=False)`` makes no call that waits
 for the card: the pose chain stays on the device between frames and nothing
@@ -70,7 +70,7 @@ import tempfile
 import numpy as np
 import torch
 
-from foundationpose_tpu_torch import resolve_device
+from foundationpose_tpu_torch import resolve_device, upload
 from foundationpose_tpu_torch.core import geometry as geo
 from foundationpose_tpu_torch.core import meshio, poses as poses_mod, validate
 from foundationpose_tpu_torch.engine.graphs import GraphCache
@@ -81,22 +81,6 @@ from foundationpose_tpu_torch.ops import depth_cuda, raster, raster_cuda
 from foundationpose_tpu_torch.utils.profiling import span
 
 HYP_BUCKET = 32  # register pads the hypothesis axis to a multiple of this
-
-
-def _upload(array, device, dtype=None):
-    """numpy array or tensor -> tensor on ``device``. On a CUDA device a host
-    array is staged in pinned memory and copied asynchronously on the current
-    stream (the pinned block is recycled only after the copy has run); on the
-    CPU it is copied into a new tensor. ``dtype`` converts on the host first.
-    A tensor already on a device is moved (not copied) to ``device``."""
-    t = array if torch.is_tensor(array) else torch.from_numpy(np.ascontiguousarray(array))
-    if dtype is not None:
-        t = t.to(dtype)
-    if t.device.type != "cpu":
-        return t.to(device)
-    if device.type != "cuda":
-        return t.clone()  # never an alias of the caller's array
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 class _PoseDownload:
@@ -295,7 +279,7 @@ class FoundationPoseTorch:
             )
         else:
             self.mesh_tensors_coarse = self.mesh_tensors
-        self._tf_centered_dev = _upload(
+        self._tf_centered_dev = upload(
             self.get_tf_to_centered_mesh(), self.device, torch.float32)
         self.rot_grid = poses_mod.make_rotation_grid(
             min_n_views=self.cfg.min_n_views,
@@ -358,7 +342,7 @@ class FoundationPoseTorch:
             extra[:, :3] *= dt
             extra[:, 3:] *= dr
             fan = np.concatenate([base, extra])
-        fan_t = _upload(fan, self.device)
+        fan_t = upload(fan, self.device)
         self._track_perturb_cache = (cache_key, fan_t)
         return fan_t
 
@@ -427,11 +411,11 @@ class FoundationPoseTorch:
             K = np.asarray(validate.check_intrinsics(K), dtype=np.float64)
             rgb, depth = validate.check_rgbd(rgb, depth, name="register")
             ob_mask = validate.check_mask(ob_mask, depth.shape, name="register")
-            K_t = _upload(K, dev, torch.float32)
-            rgb_t = _upload(self._as_u8(rgb), dev).float()
-            depth_t = _upload(np.asarray(depth, np.float32), dev)
+            K_t = upload(K, dev, torch.float32)
+            rgb_t = upload(self._as_u8(rgb), dev).float()
+            depth_t = upload(np.asarray(depth, np.float32), dev)
             mask_t = (ob_mask.to(dev, non_blocking=True) > 0 if torch.is_tensor(ob_mask)
-                      else _upload(np.asarray(ob_mask) > 0, dev))
+                      else upload(np.asarray(ob_mask) > 0, dev))
             if cfg.register_mask_dilation:
                 # gate the OBSERVED frame to a dilated margin around the
                 # segmentation mask; zeroed depth reads as sensor holes
@@ -456,7 +440,7 @@ class FoundationPoseTorch:
         n_orig = len(self.rot_grid)
         grid = self.rot_grid[np.r_[0:n_orig, np.zeros((-n_orig) % self._hyp_quantum(), int)]]
         n_hyp = len(grid)
-        hyp = _upload(grid, dev)
+        hyp = upload(grid, dev)
         hyp[:, :3, 3] = center[None]
         is_pad = torch.arange(n_hyp, device=dev) >= n_orig
         mt, diam = self.mesh_tensors, float(self.diameter)
@@ -514,15 +498,15 @@ class FoundationPoseTorch:
         from foundationpose_tpu_torch.utils import vis as vis_mod
 
         dev = self.device
-        poses_t = _upload(np.asarray(poses), dev, torch.float32)
-        K_t = _upload(K, dev, torch.float32)
+        poses_t = upload(np.asarray(poses), dev, torch.float32)
+        K_t = upload(K, dev, torch.float32)
         tfs = geo.compute_crop_window_tf_batch(
             poses_t, K_t, self.refiner.cfg.crop_ratio, float(self.diameter), (size, size))
         out = raster_cuda.render_crops(
             self.mesh_tensors, poses_t, K_t, tfs, out_hw=(size, size),
             backface_cull=self.refiner.cfg.backface_cull, with_normal=False)
         observed = imops.warp_crop_affine(
-            _upload(np.asarray(rgb), dev, torch.float32), tfs, (size, size)) / 255.0
+            upload(np.asarray(rgb), dev, torch.float32), tfs, (size, size)) / 255.0
         return vis_mod.make_comparison_strip(out["rgb"].cpu().numpy(),
                                              observed.cpu().numpy())
 
@@ -546,12 +530,12 @@ class FoundationPoseTorch:
             self._imwrite(os.path.join(out_dir, "vis_score_top.png"), canvas)
         if self.cfg.debug >= 3:
             dev = self.device
-            K_t = _upload(K, dev, torch.float32)
-            rgb_t = _upload(np.asarray(rgb), dev, torch.float32)
-            _, xyz_map = preprocess_depth(_upload(np.asarray(depth, np.float32), dev), K_t)
+            K_t = upload(K, dev, torch.float32)
+            rgb_t = upload(np.asarray(rgb), dev, torch.float32)
+            _, xyz_map = preprocess_depth(upload(np.asarray(depth, np.float32), dev), K_t)
             hyp = self.rot_grid[self.hyp_order[:k]].copy()
             hyp[:, :3, 3] = self._last_center[None]
-            poses_it = _upload(hyp, dev, torch.float32)
+            poses_it = upload(hyp, dev, torch.float32)
             for it in range(self._last_iteration):
                 poses_it = self.refiner.refine(self.mesh_tensors, rgb_t, xyz_map, K_t,
                                                poses_it, float(self.diameter), 1)
@@ -651,12 +635,12 @@ class FoundationPoseTorch:
         # nothing below reads a device value on the host
         dev = self.device
         with span("estimator.preprocess"):
-            K_t = _upload(K, dev, torch.float32)
-            rgb_t = _upload(rgb_u8, dev).float()
-            _, xyz_map = preprocess_depth(_upload(depth, dev), K_t)
+            K_t = upload(K, dev, torch.float32)
+            rgb_t = upload(rgb_u8, dev).float()
+            _, xyz_map = preprocess_depth(upload(depth, dev), K_t)
             pose_last = self._pose_last_dev
             if pose_last is None:
-                pose_last = _upload(self._pose_last_np[None], dev, torch.float32)
+                pose_last = upload(self._pose_last_np[None], dev, torch.float32)
         mt, diam, graphs = self.mesh_tensors, float(self.diameter), self._track_graphs
         if self.cfg.track_hypotheses > 1:
             gate = int(self.cfg.track_gate_px)

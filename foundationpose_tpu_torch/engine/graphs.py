@@ -32,11 +32,11 @@ another tensor changes the key, and the call captures anew.
 
 All graphs of a cache share one memory pool: they run one after another on
 one stream, and each one's static output stays allocated while the cache
-holds it. The launch counters of the hand kernels (``raster_cuda.LAUNCHES``,
-``depth_cuda.LAUNCHES``) count what a call really launches: a capture's
-recording is taken back out of them, and each replay adds what the graph
-launches. A capture is the span ``graph.capture`` (``n``: the kernels
-captured), a replay ``graph.replay`` (``n``: the kernels it runs).
+holds it. The hand kernels' launch counter (``ops/kernels.LAUNCHES``) counts
+what a call really launches: a capture's recording is taken back out of it,
+and each replay adds what the graph launches. A capture is the span
+``graph.capture`` (``n``: the kernels captured), a replay ``graph.replay``
+(``n``: the kernels it runs).
 """
 
 from __future__ import annotations
@@ -48,10 +48,9 @@ from typing import Callable
 
 import torch
 
-from foundationpose_tpu_torch.ops import depth_cuda, raster_cuda
+from foundationpose_tpu_torch.ops import kernels
 from foundationpose_tpu_torch.utils.profiling import span
 
-_COUNTERS = (raster_cuda.LAUNCHES, depth_cuda.LAUNCHES)
 _EAGER = object()  # a key whose first call ran eagerly
 _CU_GRAPH_NODE_TYPE_KERNEL = 0
 _libcuda = None
@@ -61,8 +60,8 @@ _libcuda = None
 class Graph:
     """A captured call: ``replay()`` runs it on the ``inputs`` buffers into the
     ``output`` buffer; ``kernels`` is the number of kernels it runs and
-    ``launches`` the hand kernels' launches among them, as (counter dict,
-    kernel, count)."""
+    ``launches`` the hand kernels' launches among them, as (kernel, count)
+    pairs."""
 
     replay: Callable[[], None]
     inputs: tuple
@@ -106,11 +105,11 @@ def captured_kernels(stream):
     _check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
     nodes = (vp * n.value)()
     _check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    kind, kernels = ctypes.c_int(), 0
+    kind, n_kernels = ctypes.c_int(), 0
     for node in nodes[:n.value]:
         _check(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)), "cuGraphNodeGetType")
-        kernels += kind.value == _CU_GRAPH_NODE_TYPE_KERNEL
-    return kernels
+        n_kernels += kind.value == _CU_GRAPH_NODE_TYPE_KERNEL
+    return n_kernels
 
 
 class GraphCache:
@@ -140,8 +139,8 @@ class GraphCache:
             static.copy_(t)
         with span("graph.replay", graph.kernels):
             graph.replay()
-        for counter, kernel, n in graph.launches:
-            counter[kernel] += n
+        for kernel, n in graph.launches:
+            kernels.LAUNCHES[kernel] += n
         return graph.output.clone()
 
     def _capture(self, fn, inputs):
@@ -155,21 +154,18 @@ class GraphCache:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
-            before = [dict(c) for c in _COUNTERS]
+            before = dict(kernels.LAUNCHES)
             with span("graph.capture") as rec:
                 graph.capture_begin(pool=self._pool)
                 try:
                     output = fn(*inputs)
-                    kernels = captured_kernels(side)
+                    n_kernels = captured_kernels(side)
                 finally:
                     graph.capture_end()
                 if rec is not None:
-                    rec["n"] = kernels
+                    rec["n"] = n_kernels
         caller.wait_stream(side)
-        launches = []
-        for counter, start in zip(_COUNTERS, before):
-            for kernel, n in start.items():
-                if counter[kernel] != n:  # the recording launched nothing
-                    launches.append((counter, kernel, counter[kernel] - n))
-                    counter[kernel] = n
-        return out, Graph(graph.replay, inputs, output, kernels, tuple(launches))
+        counts = kernels.LAUNCHES
+        launches = tuple((k, counts[k] - n) for k, n in before.items() if counts[k] != n)
+        counts.update(before)  # the recording launched nothing
+        return out, Graph(graph.replay, inputs, output, n_kernels, launches)

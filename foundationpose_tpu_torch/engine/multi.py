@@ -37,9 +37,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from foundationpose_tpu_torch import resolve_device
+from foundationpose_tpu_torch import resolve_device, upload
 from foundationpose_tpu_torch.core import meshio
-from foundationpose_tpu_torch.engine.estimator import _upload, preprocess_depth
+from foundationpose_tpu_torch.engine.estimator import preprocess_depth
 from foundationpose_tpu_torch.engine.refiner import (
     PoseRefiner, RefinerConfig, apply_net_output, refine_inputs,
 )
@@ -164,14 +164,14 @@ class MultiObjectTracker:
         if self.poses is None:
             raise RuntimeError("set_poses() before track()")
         dev, cfg, mine = self.device, self.refiner.cfg, self.mine
-        Ks = _upload(np.asarray(Ks)[mine], dev, torch.float32)
-        rgbs = _upload(np.asarray(rgbs)[mine], dev, torch.float32)
-        depths = _upload(np.asarray(depths)[mine], dev, torch.float32)
+        Ks = upload(np.asarray(Ks)[mine], dev, torch.float32)
+        rgbs = upload(np.asarray(rgbs)[mine], dev, torch.float32)
+        depths = upload(np.asarray(depths)[mine], dev, torch.float32)
         O = len(self.mesh_tensors)
         xyz_maps = [preprocess_depth(depths[o], Ks[o])[1] for o in range(O)]
         meshes = self.mesh_tensors
         diameters = [float(d) for d in self.diameters[mine]]
-        poses = _upload(self.poses[mine], dev)
+        poses = upload(self.poses[mine], dev)
         for _ in range(int(iteration)):
             data = [
                 refine_inputs(meshes[o], poses[o:o + 1], Ks[o], rgbs[o], xyz_maps[o],

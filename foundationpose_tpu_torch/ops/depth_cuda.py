@@ -26,45 +26,19 @@ memory and no host round trip.
 Dispatch rule: a CUDA tensor goes to the kernel (a build, load or launch
 failure raises; radius 2 and the plain functions' default thresholds are
 compiled in, and the wrapper takes no other); a CPU tensor goes to the plain
-composition. There is no fallback from one to the other. ``LAUNCHES`` counts
-kernel launches and nothing else.
+composition. There is no fallback from one to the other. ``ops/kernels.py``
+builds, loads, launches and counts it.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from foundationpose_tpu_torch.core import geometry as geo
 from foundationpose_tpu_torch.ops import image as imops
-from foundationpose_tpu_torch.ops import raster_cuda
-from foundationpose_tpu_torch.utils.profiling import span
+from foundationpose_tpu_torch.ops import kernels
 
-LAUNCHES = {"K2": 0}  # one more per launch
-RADIUS = 2            # of both stencils; compiled into the kernel
-SOURCE, FLAGS = raster_cuda.spec("K2")  # built with -fmad=false, as K1s is
-_vp, _ci = ctypes.c_void_p, ctypes.c_int
-# fp_depth_preprocess_launch(depth, K, H, W, out, xyz, stream)
-ARGTYPES = [_vp, _vp, _ci, _ci, _vp, _vp, _vp]
-_fn = None
-
-
-def bind(path):
-    """The typed launch function of a built K2 library."""
-    fn = ctypes.CDLL(path).fp_depth_preprocess_launch
-    fn.argtypes = ARGTYPES
-    fn.restype = _ci
-    return fn
-
-
-def build():
-    """Build every card library (``raster_cuda.library_paths``: K1s's and
-    K1r's compilers run beside K2's) and load K2. Raises on any failure."""
-    global _fn
-    if _fn is None:
-        _fn = bind(raster_cuda.library_paths()["K2"])
-    return _fn
+RADIUS = 2  # of both stencils; compiled into the kernel
 
 
 def plain_preprocess(depth, K=None):
@@ -97,12 +71,6 @@ def preprocess(depth, K=None):
                          f"{depth.device}, got {got}")
     out = torch.empty_like(depth)
     xyz = None if K is None else torch.empty((H, W, 3), dtype=torch.float32, device=depth.device)
-    fn = build()
-    with torch.cuda.device(depth.device), span("depth.K2"):
-        err = fn(depth.data_ptr(), None if K is None else K.data_ptr(), H, W, out.data_ptr(),
-                 None if xyz is None else xyz.data_ptr(),
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"K2 launch failed: CUDA error {err}")
-    LAUNCHES["K2"] += 1
+    kernels.launch("K2", depth.device, depth.data_ptr(), None if K is None else K.data_ptr(),
+                   H, W, out.data_ptr(), None if xyz is None else xyz.data_ptr())
     return out, xyz

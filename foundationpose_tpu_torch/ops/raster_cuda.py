@@ -5,9 +5,8 @@ foundationpose_tpu/ops/raster_pallas.py::_make_raster_kernel (driven by
 ``render_crops_pallas``): same arguments at the Python boundary, same output
 dict (``rgb, depth, xyz, mask`` and ``normal`` when asked). On CUDA tensors
 one call is: allocate outputs and scratch -> setup kernel -> raster kernel.
-Both kernels are CUDA C++ for sm_90a under ``csrc/``, built with nvcc at
-first use into ``_build/`` (one compiler process per source, started
-together) and bound through ctypes:
+Both kernels are CUDA C++ for sm_90a under ``csrc/``, built, loaded,
+launched and counted by ``ops/kernels.py``:
 
 - **K1s** (``csrc/raster_setup.cu``): per-(pose, vertex) table, per-(pose,
   face) records and a per-(pose, tile) bit table of the faces whose bounding
@@ -29,148 +28,21 @@ and there is no face cap beyond memory.
 
 Dispatch rule: CUDA tensors go to the kernels (a build, load or launch
 failure raises); CPU tensors go to the plain version in ``ops/raster.py``.
-There is no fallback from one to the other. ``LAUNCHES`` counts kernel
-launches, per kernel, and nothing else; ``launched_libraries()`` names the
-library files whose code those launches called, as the dynamic loader
-resolves the launch functions' addresses.
+There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import subprocess
-
 import numpy as np
 import torch
 
+from foundationpose_tpu_torch.ops import kernels
 from foundationpose_tpu_torch.ops import raster as plain
-from foundationpose_tpu_torch.utils.profiling import span
 
-LAUNCHES = {"K1s": 0, "K1r": 0}  # one more per launch of that kernel
-_SPANS = {"K1s": "raster.K1s", "K1r": "raster.K1r"}  # the launch call's span
-BUILD_LOG = {}        # kernel -> compiler output (ptxas register / shared memory report)
+# every card kernel's launch span, by kernel (benchmark/tests reads it here)
+_SPANS = {name: lib.span for name, lib in kernels.LIBRARIES.items()}
 BBOX_PAD = 0.5        # pixels; covers the -1e-6 edge epsilon and f32 rounding
 TILE = 16             # pixels; a block of K1r owns one TILE x TILE tile
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
-# every card library of the port: kernel -> (source, extra flags). K1s and
-# K2 round a*b+c twice, as the eager tensor ops of their plain versions do
-# (see the notes in their sources). K2 is bound by ``ops/depth_cuda.py``.
-LIBRARIES = {
-    "K1s": (os.path.join(_PKG_DIR, "csrc", "raster_setup.cu"), ["-fmad=false"]),
-    "K1r": (os.path.join(_PKG_DIR, "csrc", "raster.cu"), []),
-    "K2": (os.path.join(_PKG_DIR, "csrc", "depth_preprocess.cu"), ["-fmad=false"]),
-}
-SOURCES = {k: LIBRARIES[k] for k in ("K1s", "K1r")}  # the kernels every render call launches
-_paths = None
-_libs = None
-_LAUNCHED_FNS = {"K1s": {}, "K1r": {}}  # kernel -> {id: launch function called}
-
-
-def _find_nvcc():
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if os.path.exists(cand):
-            return cand
-    return "nvcc"  # let the PATH decide; a missing compiler raises below
-
-
-def library_path(name, src, flags):
-    """Where ``_build/`` keeps the library of ``src`` built with ``flags``:
-    named after a hash of the source and the flags."""
-    with open(src, "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
-    return os.path.join(_BUILD_DIR, f"libfp_{name.lower()}_{key}.so")
-
-
-def _start_build(name, src, flags):
-    """Start nvcc on ``src`` unless ``_build/`` already holds the library.
-    Returns (library path, temporary path, process or None)."""
-    so_path = library_path(name, src, flags)
-    if os.path.exists(so_path):
-        return so_path, None, None
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{so_path}.{os.getpid()}.tmp"
-    proc = subprocess.Popen([_find_nvcc(), *flags, "-o", tmp, src],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return so_path, tmp, proc
-
-
-def compile_libraries(specs, log):
-    """Build ``specs`` ({name: (source, nvcc flags)}), the compilers running
-    side by side; each one's output goes to ``log[name]``. Returns {name:
-    library path}. Raises naming every source that failed."""
-    jobs = {name: _start_build(name, src, flags) for name, (src, flags) in specs.items()}
-    failed = []
-    for name, (so_path, tmp, proc) in jobs.items():
-        if proc is None:
-            continue
-        log[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {specs[name][0]}:\n{log[name]}")
-        else:
-            os.replace(tmp, so_path)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return {name: job[0] for name, job in jobs.items()}
-
-
-def bind_setup(path):
-    """The typed launch function of a built K1s library."""
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = ctypes.CDLL(path).fp_raster_setup_launch
-    fn.argtypes = [vp] * 6 + [ci] * 6 + [cf] * 3 + [vp] * 4
-    fn.restype = ci
-    return fn
-
-
-def bind_raster(path):
-    """The typed launch function of a built K1r library."""
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = ctypes.CDLL(path).fp_raster_launch
-    fn.argtypes = [vp] * 6 + [ci] * 9 + [cf] * 2 + [vp] * 8
-    fn.restype = ci
-    return fn
-
-
-def spec(name):
-    """(source, nvcc flags) of the card library ``name`` of ``LIBRARIES``."""
-    src, extra = LIBRARIES[name]
-    return src, _NVCC_FLAGS + extra
-
-
-def default_specs():
-    """{kernel: (source, nvcc flags)} of the kernels every render call
-    launches: no part switch defined."""
-    return {name: spec(name) for name in SOURCES}
-
-
-def library_paths():
-    """Build every library of ``LIBRARIES`` into ``_build/`` once per
-    process, the compilers running side by side, so a checkout's first call
-    pays one build. Returns {kernel: library path}. Raises on any failure."""
-    global _paths
-    if _paths is None:
-        _paths = compile_libraries({name: spec(name) for name in LIBRARIES}, BUILD_LOG)
-    return _paths
-
-
-def build():
-    """Build (``library_paths``) and load K1s and K1r. Raises on any failure."""
-    global _libs
-    if _libs is None:
-        paths = library_paths()
-        _libs = {"K1s": bind_setup(paths["K1s"]), "K1r": bind_raster(paths["K1r"])}
-    return _libs
 
 
 def make_kernel_inputs(mesh_tensors, poses, K, crop_tfs, light_dir=(0.0, 0.0, 1.0),
@@ -250,40 +122,6 @@ def _check(name, x, dtype, shape):
     return x
 
 
-def _launch(name, dev, *args):
-    fn = build()[name]
-    with torch.cuda.device(dev), span(_SPANS[name]):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
-    _LAUNCHED_FNS[name][id(fn)] = fn  # ctypes functions do not hash
-
-
-class _DlInfo(ctypes.Structure):
-    _fields_ = [("dli_fname", ctypes.c_char_p), ("dli_fbase", ctypes.c_void_p),
-                ("dli_sname", ctypes.c_char_p), ("dli_saddr", ctypes.c_void_p)]
-
-
-def library_file(fn):
-    """The file of the shared library that holds the code of the ctypes
-    function ``fn``, as the dynamic loader resolves its address
-    (``dladdr``), with links resolved."""
-    dladdr = ctypes.CDLL(None).dladdr
-    dladdr.argtypes = [ctypes.c_void_p, ctypes.POINTER(_DlInfo)]
-    info = _DlInfo()
-    if not dladdr(ctypes.cast(fn, ctypes.c_void_p), ctypes.byref(info)) or not info.dli_fname:
-        raise RuntimeError(f"the dynamic loader places {fn} in no library")
-    return os.path.realpath(info.dli_fname.decode())
-
-
-def launched_libraries():
-    """{kernel: set of library files} that this process's kernel launches
-    called into, since it started."""
-    return {name: {library_file(fn) for fn in fns.values()}
-            for name, fns in _LAUNCHED_FNS.items()}
-
-
 def setup_launch_args(mesh_tensors, poses, K, crop_tfs, out_hw, light_dir=(0.0, 0.0, 1.0),
                       backface_cull=False):
     """Checked arguments of one K1s launch. Returns (device, the launch
@@ -322,7 +160,7 @@ def setup_cuda(mesh_tensors, poses, K, crop_tfs, out_hw, light_dir=(0.0, 0.0, 1.
     box) and ``bins`` (B,tiles,ceil(F/32)) int32."""
     dev, args, scratch = setup_launch_args(mesh_tensors, poses, K, crop_tfs, out_hw,
                                            light_dir, backface_cull)
-    _launch("K1s", dev, *args)
+    kernels.launch("K1s", dev, *args)
     return scratch
 
 
@@ -381,7 +219,7 @@ def rasterize_cuda(mesh_tensors, scratch, out_hw, use_light, w_ambient, w_diffus
     dict of ``render_crops`` (plus ``tri`` int32 and ``bary`` when asked)."""
     dev, args, out = raster_launch_args(mesh_tensors, scratch, out_hw, use_light, w_ambient,
                                         w_diffuse, with_normal, with_tri, with_bary)
-    _launch("K1r", dev, *args)
+    kernels.launch("K1r", dev, *args)
     return out
 
 

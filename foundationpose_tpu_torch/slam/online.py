@@ -26,7 +26,7 @@ import logging
 import numpy as np
 import torch
 
-from foundationpose_tpu_torch import resolve_device
+from foundationpose_tpu_torch import resolve_device, upload
 from foundationpose_tpu_torch.core import geometry as geo
 from foundationpose_tpu_torch.core.meshio import Mesh, compute_mesh_diameter
 from foundationpose_tpu_torch.engine.geometric import GeometricConfig, GeometricRefiner
@@ -130,18 +130,18 @@ class ModelFreeTracker:
         inside trains the field.)"""
         if self.cam_in_ob is None:
             raise RuntimeError("call init() first")
-        from foundationpose_tpu_torch.engine.estimator import _upload, preprocess_depth
+        from foundationpose_tpu_torch.engine.estimator import preprocess_depth
 
         dev = self.device
-        K_t = _upload(self.K, dev, torch.float32)
+        K_t = upload(self.K, dev, torch.float32)
         with torch.no_grad():
-            _, xyz_map = preprocess_depth(_upload(np.asarray(depth, np.float32), dev), K_t)
+            _, xyz_map = preprocess_depth(upload(np.asarray(depth, np.float32), dev), K_t)
         ob_in_cam = np.linalg.inv(self.cam_in_ob)
         # refine in the centred-mesh frame, convert back after
         ob_in_cam_c = ob_in_cam @ self._to_center
         refined_c = self.refiner.refine(
-            self.mesh_tensors, _upload(np.asarray(rgb, np.float32), dev), xyz_map, K_t,
-            _upload(ob_in_cam_c[None], dev, torch.float32), self.diameter,
+            self.mesh_tensors, upload(np.asarray(rgb, np.float32), dev), xyz_map, K_t,
+            upload(ob_in_cam_c[None], dev, torch.float32), self.diameter,
             iteration=self.cfg.track_iterations,
         )[0].cpu().numpy().astype(np.float64)
         refined = refined_c @ self._from_center

@@ -6,11 +6,13 @@ composition bit for bit. Here: a CPU tensor takes the plain composition
 (``erode_depth`` -> ``bilateral_filter_depth`` -> ``depth2xyzmap``) bit for
 bit and launches nothing; that composition agrees with the JAX package's
 within 1e-6 (same shift stack and order, float32); ``preprocess_depth``'s
-row-sharded branch gives the unsharded result bit for bit; the build raises
-without a compiler; the binding's argument types are the C signature's; the
-constants compiled into the kernel are the plain functions' defaults; K2's
-bound counts each pixel once; the smoke's launch counts carry K2 beside K1s
-and K1r, per path, and hold it at one launch per frame preprocessed.
+row-sharded branch gives the unsharded result bit for bit; every card
+library is one row of ``ops/kernels.py``'s table, built together, and each
+kernel's binding (K1s's and K1r's too) takes its C signature's argument
+types; the constants compiled into the kernel are the plain functions'
+defaults; K2's bound counts each pixel once; the smoke's launch counts carry
+K2 beside K1s and K1r, per path, and hold it at one launch per frame
+preprocessed.
 """
 
 import ctypes
@@ -18,7 +20,6 @@ import importlib.util
 import inspect
 import os
 import re
-import shutil
 import threading
 import types
 
@@ -30,9 +31,10 @@ from foundationpose_tpu.core import geometry as jgeo
 from foundationpose_tpu.ops import image as jimops
 from foundationpose_tpu_torch.core import geometry as geo
 from foundationpose_tpu_torch.engine import estimator
-from foundationpose_tpu_torch.ops import depth_cuda
+from foundationpose_tpu_torch import native
+from foundationpose_tpu_torch.ops import depth_cuda, kernels
 from foundationpose_tpu_torch.ops import image as imops
-from foundationpose_tpu_torch.ops import raster_bounds, raster_cuda
+from foundationpose_tpu_torch.ops import raster_bounds
 from foundationpose_tpu_torch.parallel import mesh as mesh_mod
 
 torch.set_num_threads(1)
@@ -72,13 +74,13 @@ def _composition(d, K_):
 def test_cpu_dispatch_is_the_plain_composition(case):
     d = torch.from_numpy(CASES[case]())
     K_t = torch.from_numpy(K)
-    before = dict(depth_cuda.LAUNCHES)
+    before = dict(kernels.LAUNCHES)
     out, xyz = depth_cuda.preprocess(d, K_t)
     ref, ref_xyz = _composition(d, K_t)
     assert torch.equal(out, ref) and torch.equal(xyz, ref_xyz)
     only, none = depth_cuda.preprocess(d)
     assert torch.equal(only, ref) and none is None
-    assert depth_cuda.LAUNCHES == before  # no kernel launch on the CPU
+    assert kernels.LAUNCHES == before  # no kernel launch on the CPU
     if case != "all_zero":
         assert (imops.erode_depth(d) == 0).sum() > (d == 0).sum()  # it erodes something
         assert ((ref != d) & (d > 0)).any()  # and smooths something
@@ -140,31 +142,24 @@ def test_sharded_preprocess_equals_unsharded(monkeypatch, world):
         assert torch.equal(got[i][0], ref) and torch.equal(got[i][1], ref_xyz)
 
 
-def test_kernel_build_raises_without_a_compiler():
-    """No silent fallback: where nvcc is missing, building K2 raises."""
-    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
-        pytest.skip("a CUDA compiler is present; the build would succeed")
-    with pytest.raises((OSError, RuntimeError)):
-        depth_cuda.build()
-    assert depth_cuda._fn is None
-
-
-def _c_signature(name):
-    with open(depth_cuda.SOURCE) as f:
+def _c_signature(source, name):
+    with open(source) as f:
         src = f.read()
     m = re.search(r'extern "C"\s+(\w+)\s+' + name + r"\s*\(([^)]*)\)", src)
-    assert m, f"no extern \"C\" {name} in {depth_cuda.SOURCE}"
+    assert m, f"no extern \"C\" {name} in {source}"
     params = [" ".join(p.split()[:-1]) for p in m.group(2).split(",")]
     return m.group(1), params
 
 
-def test_binding_argtypes_match_the_c_signature(monkeypatch):
+@pytest.mark.parametrize("name", list(kernels.LIBRARIES))
+def test_binding_argtypes_match_the_c_signature(monkeypatch, name):
     ctype = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
              "float": ctypes.c_float}
-    ret, params = _c_signature("fp_depth_preprocess_launch")
-    lib = types.SimpleNamespace(fp_depth_preprocess_launch=types.SimpleNamespace())
-    monkeypatch.setattr(depth_cuda.ctypes, "CDLL", lambda path: lib)
-    fn = depth_cuda.bind("libfp_k2.so")
+    entry = kernels.LIBRARIES[name].entry
+    ret, params = _c_signature(kernels.LIBRARIES[name].source, entry)
+    lib = types.SimpleNamespace(**{entry: types.SimpleNamespace()})
+    monkeypatch.setattr(kernels.ctypes, "CDLL", lambda path: lib)
+    fn = kernels.load(name, f"libfp_{name.lower()}.so")
     assert fn.argtypes == [ctype[p] for p in params]
     assert fn.restype is ctype[ret]
 
@@ -172,7 +167,7 @@ def test_binding_argtypes_match_the_c_signature(monkeypatch):
 def test_compiled_constants_are_the_plain_defaults():
     """The thresholds and radius compiled into K2 are the defaults of the
     plain functions it is held against (and ``depth_cuda.RADIUS``)."""
-    with open(depth_cuda.SOURCE) as f:
+    with open(kernels.LIBRARIES["K2"].source) as f:
         defs = dict(re.findall(r"^#define (\w+) ([-\w.]+)", f.read(), re.M))
     num = {k: float(v.rstrip("f")) for k, v in defs.items() if re.fullmatch(r"[-\d.e]+f?", v)}
     erode = inspect.signature(imops.erode_depth).parameters
@@ -187,14 +182,32 @@ def test_compiled_constants_are_the_plain_defaults():
         geo.depth2xyzmap).parameters["zfar"].default == float("inf")
 
 
-def test_every_card_library_is_built_from_one_table():
-    """K2 is built from ``raster_cuda.LIBRARIES`` with K1s and K1r, with the
-    flags a render call's kernels get plus ``-fmad=false``."""
-    assert set(raster_cuda.LIBRARIES) == {"K1s", "K1r", "K2"}
-    assert (depth_cuda.SOURCE, depth_cuda.FLAGS) == raster_cuda.spec("K2")
-    assert depth_cuda.SOURCE.endswith(os.path.join("csrc", "depth_preprocess.cu"))
-    assert "-fmad=false" in depth_cuda.FLAGS
-    assert raster_cuda.default_specs() == {k: raster_cuda.spec(k) for k in ("K1s", "K1r")}
+def test_every_card_library_is_built_from_one_table(monkeypatch):
+    """K1s, K1r and K2 are the rows of ``kernels.LIBRARIES``, each source
+    under ``csrc/`` with the common nvcc flags (plus ``-fmad=false`` for K1s
+    and K2); the first use builds all three with one ``compile_libraries``
+    call, through nvcc, into ``BUILD_LOG``, and loads them all."""
+    assert set(kernels.LIBRARIES) == {"K1s", "K1r", "K2"}
+    files = {"K1s": "raster_setup.cu", "K1r": "raster.cu", "K2": "depth_preprocess.cu"}
+    for name, lib in kernels.LIBRARIES.items():
+        assert lib.source.endswith(os.path.join("csrc", files[name]))
+        assert kernels.spec(name) == (lib.source, kernels.NVCC_FLAGS + list(lib.flags))
+        assert ("-fmad=false" in lib.flags) == (name != "K1r")
+    calls, loaded = [], []
+
+    def compile_libraries(compiler, specs, log):
+        calls.append((compiler, specs, log))
+        return {name: f"lib{name}.so" for name in specs}
+
+    monkeypatch.setattr(native, "compile_libraries", compile_libraries)
+    monkeypatch.setattr(kernels, "load", lambda name, path: loaded.append((name, path)) or name)
+    monkeypatch.setattr(kernels, "_paths", None)
+    monkeypatch.setattr(kernels, "_fns", None)
+    assert kernels.build() == {"K1s": "K1s", "K1r": "K1r", "K2": "K2"}
+    assert kernels.build() is kernels.build()
+    assert calls == [(kernels.nvcc(), {k: kernels.spec(k) for k in kernels.LIBRARIES},
+                      kernels.BUILD_LOG)]
+    assert loaded == [(k, f"lib{k}.so") for k in ("K1s", "K1r", "K2")]
 
 
 def test_k2_bound_reads_and_writes_each_pixel_once():
@@ -218,19 +231,17 @@ def test_smoke_counts_k2_per_path_and_holds_it(monkeypatch):
     """``reset_launches`` sets K2 to 0 with K1s and K1r; ``expect_launches``
     returns all three and reports a K2 count other than the one asked for."""
     smoke = _load_smoke()
-    monkeypatch.setattr(raster_cuda, "LAUNCHES", {"K1s": 7, "K1r": 7})
-    monkeypatch.setattr(depth_cuda, "LAUNCHES", {"K2": 1014})
-    smoke.reset_launches(raster_cuda)
-    assert smoke.launch_counts(raster_cuda) == {"K1s": 0, "K1r": 0, "K2": 0}
-    before = smoke.launch_counts(raster_cuda)
-    raster_cuda.LAUNCHES.update(K1s=11, K1r=11)
-    depth_cuda.LAUNCHES["K2"] = 1
-    got = smoke.expect_launches(raster_cuda, before, 11, "register", k2=1)
+    monkeypatch.setattr(kernels, "LAUNCHES", {"K1s": 7, "K1r": 7, "K2": 1014})
+    smoke.reset_launches()
+    assert smoke.launch_counts() == {"K1s": 0, "K1r": 0, "K2": 0}
+    before = smoke.launch_counts()
+    kernels.LAUNCHES.update(K1s=11, K1r=11, K2=1)
+    got = smoke.expect_launches(before, 11, "register", k2=1)
     assert got == {"K1s": 11, "K1r": 11, "K2": 1} and smoke.FAILURES == []
-    smoke.expect_launches(raster_cuda, before, 11, "register", k2=2)
+    smoke.expect_launches(before, 11, "register", k2=2)
     assert smoke.FAILURES == ["register launched K2 1 times, expected 2"]
     with pytest.raises(SystemExit):
-        smoke.expect_launches(raster_cuda, before, 4, "track frame", k2=1)
+        smoke.expect_launches(before, 4, "track frame", k2=1)
 
 
 def test_smoke_counts_the_harness_frames():

@@ -20,6 +20,7 @@ from foundationpose_tpu.engine import geometric as jgeometric
 from foundationpose_tpu.engine import refiner as jrefiner_mod
 from foundationpose_tpu.engine import scorer as jscorer_mod
 from foundationpose_tpu.models import agnostic as jagnostic
+from foundationpose_tpu_torch import upload
 from foundationpose_tpu_torch.apps import demo_synthetic as demo
 from foundationpose_tpu_torch.core import geometry as geo, metrics
 from foundationpose_tpu_torch.engine import estimator as est_mod
@@ -377,11 +378,11 @@ def test_upload_helper_copies_and_converts():
     """The one upload path of ``register`` and ``track_one``: on the CPU a
     copy (never an alias of the caller's array), converted on the host."""
     a = np.arange(6, dtype=np.float64).reshape(2, 3)
-    t = est_mod._upload(a, torch.device("cpu"), torch.float32)
+    t = upload(a, torch.device("cpu"), torch.float32)
     assert t.dtype == torch.float32 and t.shape == (2, 3)
     a[0, 0] = 99.0
     assert t[0, 0] == 0.0
-    m = est_mod._upload(np.array([[True, False]])[:, ::-1], torch.device("cpu"))
+    m = upload(np.array([[True, False]])[:, ::-1], torch.device("cpu"))
     assert m.dtype == torch.bool and m.tolist() == [[False, True]]
     d = est_mod._PoseDownload(torch.eye(4))
     assert d.ready() and d.numpy().dtype == np.float64

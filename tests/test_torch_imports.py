@@ -33,6 +33,7 @@ def _sources():
 def test_sources_found():
     names = {os.path.relpath(f, ROOT) for f in _sources()}
     for must in ("chip_smoke.py", "foundationpose_tpu_torch/ops/raster_cuda.py",
+                 "foundationpose_tpu_torch/ops/kernels.py",
                  "foundationpose_tpu_torch/csrc/raster.cu",
                  "foundationpose_tpu_torch/ops/depth_cuda.py",
                  "foundationpose_tpu_torch/csrc/depth_preprocess.cu",

@@ -4,6 +4,9 @@ package's clustering, bit for bit (the kept poses are copies of the inputs,
 so equal sets are equal bits), as tests/test_poses_mesh.py:52 holds the JAX
 package's native library."""
 
+import os
+import shutil
+
 import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation
@@ -11,6 +14,7 @@ from scipy.spatial.transform import Rotation
 from foundationpose_tpu.core import poses as jposes
 from foundationpose_tpu_torch import native
 from foundationpose_tpu_torch.core import poses
+from foundationpose_tpu_torch.ops import kernels
 
 CONTINUOUS_Z = {"symmetries_continuous": [{"axis": [0, 0, 1], "offset": [0, 0, 0]}]}
 
@@ -55,7 +59,10 @@ def test_edge_cases_match_numpy():
 
 def test_a_failed_build_raises(monkeypatch, tmp_path):
     """No compiler, or a source that does not compile: the call raises and
-    nothing gives way to the numpy version."""
+    nothing gives way to the numpy version. The card kernels' build
+    (``ops/kernels.py``, through the same ``compile_libraries``; g++ stands
+    in for nvcc) raises the same way, naming the source, and loads and keeps
+    nothing."""
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "FLAGS", native.FLAGS + ["-DFP_TEST_NO_COMPILER"])
     monkeypatch.setattr(native.shutil, "which", lambda name: None)
@@ -69,3 +76,15 @@ def test_a_failed_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(native, "_BUILD_DIR", str(tmp_path / "_build"))
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         poses.cluster_poses(30.0, 1.0, random_poses(4, 5, 0.0))
+    bad_cu = tmp_path / "bad.cu"
+    bad_cu.write_text("this is not CUDA\n")
+    monkeypatch.setattr(kernels, "LIBRARIES", {
+        "K1s": kernels.Library(str(bad_cu), (), "fp_bad_launch", (), "raster.K1s")})
+    monkeypatch.setattr(kernels, "nvcc", lambda: shutil.which("g++"))
+    monkeypatch.setattr(kernels, "NVCC_FLAGS", ["-x", "c++", "-shared", "-fPIC"])
+    monkeypatch.setattr(kernels, "_paths", None)
+    monkeypatch.setattr(kernels, "_fns", None)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed for .*bad.cu"):
+        kernels.launch("K1s", "cpu")
+    assert kernels._paths is None and kernels._fns is None
+    assert not [f for f in os.listdir(tmp_path / "_build") if f.endswith(".so")]

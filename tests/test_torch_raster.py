@@ -30,7 +30,7 @@ from foundationpose_tpu.core import geometry as jgeo
 from foundationpose_tpu.ops import raster as jraster
 from foundationpose_tpu.ops.raster_pallas import render_crops_pallas
 from foundationpose_tpu_torch.core import geometry as geo, meshio
-from foundationpose_tpu_torch.ops import raster, raster_cuda
+from foundationpose_tpu_torch.ops import kernels, raster, raster_cuda
 
 torch.set_num_threads(1)
 K = np.array([[200.0, 0, 32], [0, 200.0, 32], [0, 0, 1]])
@@ -270,21 +270,26 @@ def test_kernel_inputs_reproduce_plain_render(cull):
 def test_wrapper_takes_plain_version_only_for_cpu_tensors():
     mesh, poses = _cube()
     mt = raster.make_mesh_tensors(mesh, device="cpu")
-    before = dict(raster_cuda.LAUNCHES)
+    before = dict(kernels.LAUNCHES)
     out = raster_cuda.render_crops(mt, poses, K, None, out_hw=HW)
     ref = raster.render_crops(mt, poses, K, None, out_hw=HW)
-    assert raster_cuda.LAUNCHES == before  # no kernel launch on the CPU
+    assert kernels.LAUNCHES == before  # no kernel launch on the CPU
     assert "tri" not in out
     for k in out:
         assert torch.equal(out[k], ref[k])
 
 
-def test_kernel_build_raises_without_a_compiler():
-    """No silent fallback: where nvcc is missing, building the kernel raises."""
+@pytest.mark.parametrize("name", list(kernels.LIBRARIES))
+def test_kernel_build_raises_without_a_compiler(name):
+    """No silent fallback: where nvcc is missing, launching any kernel of the
+    table raises, before it loads or counts anything."""
     if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("a CUDA compiler is present; the build would succeed")
+    before = dict(kernels.LAUNCHES)
     with pytest.raises((OSError, RuntimeError)):
-        raster_cuda.build()
+        kernels.launch(name, "cpu")
+    assert kernels._fns is None and kernels._paths is None
+    assert kernels.LAUNCHES == before
 
 
 def test_make_mesh_tensors_device_rule():

@@ -13,9 +13,9 @@ held to the properties the design depends on:
   row-major order), which the kernels share with the plain version;
 - the texture + lighting arithmetic written tap by tap in the kernel's order
   equals ``_sample_texture`` + ``shade``;
-- the wrapper counts launches per kernel and never gives way to the plain
-  version on its own, and names the library file each launch called into
-  by the launch function's address.
+- the launch path (``ops/kernels.py``) counts launches per kernel, the
+  wrapper never gives way to the plain version on its own, and the library
+  file each launch called into is named by the launch function's address.
 """
 
 import ctypes
@@ -29,7 +29,7 @@ import torch
 from hypothesis import given, settings, strategies as st
 
 from foundationpose_tpu_torch.core import meshio
-from foundationpose_tpu_torch.ops import raster, raster_cuda
+from foundationpose_tpu_torch.ops import depth_cuda, kernels, raster, raster_cuda
 
 torch.set_num_threads(1)
 K = np.array([[200.0, 0, 24], [0, 200.0, 20], [0, 0, 1]])
@@ -227,15 +227,18 @@ def test_in_kernel_texture_order_on_the_textured_render():
 
 
 def test_launches_are_counted_per_kernel_and_not_on_the_cpu():
-    assert set(raster_cuda.LAUNCHES) == set(raster_cuda.SOURCES) == {"K1s", "K1r"}
-    assert all(isinstance(v, int) for v in raster_cuda.LAUNCHES.values())
+    """One counter, one entry per kernel of the table; neither wrapper
+    counts on the CPU."""
+    assert set(kernels.LAUNCHES) == set(kernels.LIBRARIES) == {"K1s", "K1r", "K2"}
+    assert all(isinstance(v, int) for v in kernels.LAUNCHES.values())
     mesh = meshio.make_box((0.1, 0.1, 0.1))
     mt = raster.make_mesh_tensors(mesh, device="cpu")
     pose = np.eye(4, dtype=np.float32)
     pose[2, 3] = 0.5
-    before = dict(raster_cuda.LAUNCHES)
+    before = dict(kernels.LAUNCHES)
     raster_cuda.render_crops(mt, pose[None], K, None, out_hw=HW)
-    assert raster_cuda.LAUNCHES == before
+    depth_cuda.preprocess(torch.full((24, 32), 0.5), torch.tensor(K, dtype=torch.float32))
+    assert kernels.LAUNCHES == before
 
 
 def test_kernel_entry_points_refuse_cpu_tensors():
@@ -247,7 +250,7 @@ def test_kernel_entry_points_refuse_cpu_tensors():
     pose = np.eye(4, dtype=np.float32)
     pose[2, 3] = 0.5
     p, Kt, tfs = raster.prepare_render_args(mt, pose[None], K, None)
-    before = dict(raster_cuda.LAUNCHES)
+    before = dict(kernels.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
         raster_cuda.setup_cuda(mt, p, Kt, tfs, HW)
     with pytest.raises(ValueError, match="CUDA"):
@@ -260,7 +263,7 @@ def test_kernel_entry_points_refuse_cpu_tensors():
         raster_cuda.rasterize_cuda(mt, scratch, HW, True, 0.8, 0.5, True)
     with pytest.raises(ValueError, match="1..65535"):
         raster_cuda.setup_cuda(mt, p[:0], Kt, tfs[:0], HW)
-    assert raster_cuda.LAUNCHES == before
+    assert kernels.LAUNCHES == before
 
 
 def test_launched_libraries_place_each_launch_function_by_its_address(tmp_path, monkeypatch):
@@ -279,9 +282,9 @@ def test_launched_libraries_place_each_launch_function_by_its_address(tmp_path, 
     os.symlink(files[1], tmp_path / "link.so")
     fns = {0: ctypes.CDLL(files[0]).fp_part, 1: ctypes.CDLL(str(tmp_path / "link.so")).fp_part}
     assert (fns[0](), fns[1]()) == (0, 1)
-    monkeypatch.setattr(raster_cuda, "_LAUNCHED_FNS",
+    monkeypatch.setattr(kernels, "_LAUNCHED_FNS",
                         {"K1s": {id(fns[0]): fns[0]},
-                         "K1r": {id(fns[0]): fns[0], id(fns[1]): fns[1]}})
-    assert raster_cuda.launched_libraries() == {
+                         "K1r": {id(fns[0]): fns[0], id(fns[1]): fns[1]}, "K2": {}})
+    assert kernels.launched_libraries() == {
         "K1s": {os.path.realpath(files[0])},
-        "K1r": {os.path.realpath(files[0]), os.path.realpath(files[1])}}
+        "K1r": {os.path.realpath(files[0]), os.path.realpath(files[1])}, "K2": set()}

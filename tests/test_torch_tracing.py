@@ -27,7 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from foundationpose_tpu_torch.apps import demo_synthetic as demo
 from foundationpose_tpu_torch.engine.estimator import HYP_BUCKET, EstimatorConfig
-from foundationpose_tpu_torch.ops import raster_cuda
+from foundationpose_tpu_torch.ops import kernels
 from foundationpose_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -220,26 +220,28 @@ def test_summary_arithmetic():
 
 
 def test_kernel_launch_has_its_span(monkeypatch):
-    """``raster_cuda._launch`` runs each launch call inside ``raster.K1s`` /
-    ``raster.K1r`` and counts it, with the launch function and stream faked
-    (the kernels themselves run only on a card)."""
+    """``kernels.launch`` runs each launch call inside ``raster.K1s`` /
+    ``raster.K1r`` / ``depth.K2``, passes the current stream last and counts
+    it, with the launch functions and stream faked (the kernels themselves
+    run only on a card)."""
     launched = []
 
     def fake(*args):
         launched.append(args)
         return 0
 
-    monkeypatch.setattr(raster_cuda, "build", lambda: {"K1s": fake, "K1r": fake})
+    monkeypatch.setattr(kernels, "build", lambda: dict.fromkeys(kernels.LIBRARIES, fake))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: type("S", (), {"cuda_stream": 0}))
-    monkeypatch.setattr(raster_cuda, "LAUNCHES", {"K1s": 0, "K1r": 0})
-    monkeypatch.setattr(raster_cuda, "_LAUNCHED_FNS", {"K1s": {}, "K1r": {}})
+    monkeypatch.setattr(kernels, "LAUNCHES", dict.fromkeys(kernels.LIBRARIES, 0))
+    monkeypatch.setattr(kernels, "_LAUNCHED_FNS", {k: {} for k in kernels.LIBRARIES})
     profiling.reset()
     with profile(activities=[ProfilerActivity.CPU]):
-        raster_cuda._launch("K1s", "cpu", 1, 2)
-        raster_cuda._launch("K1r", "cpu", 3)
+        kernels.launch("K1s", "cpu", 1, 2)
+        kernels.launch("K1r", "cpu", 3)
+        kernels.launch("K2", "cpu", 4)
     names = [r["name"] for r in profiling.records()]
     profiling.reset()
-    assert names == ["raster.K1s", "raster.K1r"]
-    assert launched == [(1, 2, 0), (3, 0)]
-    assert raster_cuda.LAUNCHES == {"K1s": 1, "K1r": 1}
+    assert names == ["raster.K1s", "raster.K1r", "depth.K2"]
+    assert launched == [(1, 2, 0), (3, 0), (4, 0)]
+    assert kernels.LAUNCHES == {"K1s": 1, "K1r": 1, "K2": 1}

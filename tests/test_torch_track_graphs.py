@@ -25,7 +25,7 @@ import torch
 from foundationpose_tpu_torch.apps import demo_synthetic as demo
 from foundationpose_tpu_torch.engine import graphs
 from foundationpose_tpu_torch.engine.estimator import EstimatorConfig
-from foundationpose_tpu_torch.ops import depth_cuda, raster_cuda
+from foundationpose_tpu_torch.ops import depth_cuda, kernels
 from foundationpose_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -262,12 +262,10 @@ def test_only_track_one_hands_a_cache(est, world):
 def test_replay_adds_the_captured_launches(est, world):
     """Each replay adds to the hand kernels' launch counters what the graph
     launches; the eager calls count their own launches (none on the CPU)."""
-    cache = est._track_graphs = StandIn(launches=((raster_cuda.LAUNCHES, "K1s", 2),
-                                                  (raster_cuda.LAUNCHES, "K1r", 2),
-                                                  (depth_cuda.LAUNCHES, "K2", 1)))
-    before = {**raster_cuda.LAUNCHES, **depth_cuda.LAUNCHES}
+    cache = est._track_graphs = StandIn(launches=(("K1s", 2), ("K1r", 2), ("K2", 1)))
+    before = dict(kernels.LAUNCHES)
     _track(est, world, world["frames"][:4])
-    got = {k: v - before[k] for k, v in {**raster_cuda.LAUNCHES, **depth_cuda.LAUNCHES}.items()}
+    got = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
     replays = cache.events.count("replay")
     assert replays == 4 and got == {"K1s": 2 * replays, "K1r": 2 * replays, "K2": replays}
 
