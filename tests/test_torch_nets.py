@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from foundationpose_tpu.models import agnostic as jagnostic
 from foundationpose_tpu.models.refine_net import RefineNet as JRefineNet
@@ -23,7 +24,12 @@ from foundationpose_tpu.models.score_net import ScoreNetMultiPair as JScoreNet
 from foundationpose_tpu_torch.models import convert
 from foundationpose_tpu_torch.models.agnostic import load_agnostic
 from foundationpose_tpu_torch.models.layers import regrid_positions, sinusoidal_positions
-from foundationpose_tpu_torch.models.refine_net import RefineNet
+from foundationpose_tpu_torch.models.refine_net import (
+    EncoderA,
+    RefineNet,
+    stem_channels,
+    stem_input,
+)
 from foundationpose_tpu_torch.models.score_net import ScoreNetMultiPair
 
 torch.set_num_threads(1)
@@ -174,3 +180,58 @@ def test_bf16_forward_close_to_float32():
         assert bf16[k].dtype == torch.float32
         assert (bf16[k] - f32[k]).abs().max() < 5e-2
     assert all(p.dtype == torch.float32 for p in refiner.net.parameters())
+
+
+@pytest.mark.parametrize("case,px,norm", [("forward", 160, None), ("forward", 75, "group"),
+                                          ("grad", 75, "group"), ("weight_changed", 75, None),
+                                          ("decision", 32, None)])
+def test_stem_padded_to_eight_channels(case, px, norm):
+    """The stem conv on crops padded with zero channels to 8 (forced here on
+    the CPU; the card takes it at a 2-byte dtype) is the unpadded conv: its
+    output within 1e-6 relative in float32 at 160 px and at an odd crop
+    size, its weight and bias gradients on the six real channels; it follows
+    an in-place change of the weight; and the path is chosen from the
+    input's device, element size and channel count."""
+    torch.manual_seed(11)
+    enc = EncoderA(6, norm)
+    A, B = (torch.tensor(t) for t in _inputs(2, px, seed=12))
+    x6 = stem_input(A, B, torch.float32)
+    x8 = stem_input(A, B, torch.float32, channels=8)
+    assert x6.shape[1] == 6 and x8.shape[1] == 8
+    assert torch.equal(x8[:, :6], x6) and not x8[:, 6:].any()
+    assert x8.is_contiguous(memory_format=torch.channels_last)
+    conv = enc.conv0.conv
+    if case == "forward":
+        with torch.no_grad():
+            y = F.conv2d(x6, conv.weight, conv.bias, 2, 3)
+            ref = F.relu(enc.conv0.GroupNorm_0(y) if norm else y)
+            out = enc.stem(x8)
+            assert out.shape == ref.shape == (4, 64, (px + 1) // 2, (px + 1) // 2)
+            assert float((out - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+            assert torch.equal(enc.stem(x6), enc.conv0(x6))
+    elif case == "grad":
+        grads = []
+        for x in (x6, x8):
+            enc.zero_grad()
+            (enc.stem(x) * torch.linspace(-1, 1, 64)[:, None, None]).sum().backward()
+            grads.append((conv.weight.grad.clone(), conv.bias.grad.clone()))
+        for a, b in zip(*grads):
+            assert a.shape == b.shape
+            assert float((a - b).abs().max()) <= 1e-6 * float(a.abs().max())
+    elif case == "weight_changed":  # nothing stale is kept between calls
+        with torch.no_grad():
+            before = enc.stem(x8)
+            conv.weight.mul_(-0.5)
+            after = enc.stem(x8)
+            assert not torch.equal(before, after)
+            assert float((after - enc.conv0(x6)).abs().max()) <= 1e-6 * float(after.abs().max())
+    else:  # the path follows the input's device, element size and channels
+        assert stem_channels(6, "cpu", torch.float32) == 6
+        assert stem_channels(6, "cpu", torch.bfloat16) == 6
+        assert stem_channels(6, torch.device("cuda"), torch.float32) == 6
+        assert stem_channels(6, torch.device("cuda", 0), torch.bfloat16) == 8
+        assert stem_channels(6, "cuda", torch.float16) == 8
+        assert stem_channels(3, "cuda", torch.bfloat16) == 8
+        assert stem_channels(8, "cuda", torch.bfloat16) == 8
+        assert stem_input(A, B, torch.bfloat16).shape[1] == 6  # a CPU tensor
+

@@ -39,7 +39,7 @@ CONFIG = EstimatorConfig(min_n_views=12, inplane_step=120, register_iterations=2
 CALLS = ("estimator.register", "estimator.track_one")
 COMMON = {"refiner.refine", "refiner.iteration", "crop.render", "crop.observe", "scorer.score",
           "geometric.score", "estimator.preprocess", "estimator.readback.wait"}
-MODE_SPANS = {"learned": {"refiner.net", "refiner.update", "scorer.net"},
+MODE_SPANS = {"learned": {"refiner.net", "refiner.update", "scorer.net", "net.stem"},
               "geometric": {"geometric.iteration", "geometric.solve"}}
 CALL_SPANS = {"estimator.register": {"estimator.register", "estimator.translation.wait",
                                      "estimator.polish"},
@@ -191,6 +191,21 @@ def test_records_show_the_schedule_and_the_batches(runs):
             assert recs[r["parent"]]["name"] == "refiner.iteration"
     else:
         assert [r["n"] for r in of(register, "refiner.net")] == [n_pad] * 2 + [k]
+
+
+def test_stem_span_reads_its_crops_and_channels(runs):
+    """One ``net.stem`` per net forward, inside it: ``n`` the crops it took
+    (rendered and observed, twice the forward's pairs) and ``size`` the
+    channels it ran at, the crops' 6 on the CPU (padded only on a card)."""
+    recs = runs["recs"]
+    stems = [r for r in recs if r["name"] == "net.stem"]
+    nets = [r for r in recs if r["name"] in ("refiner.net", "scorer.net")]
+    assert len(stems) == len(nets)
+    assert bool(nets) == (runs["mode"] == "learned")
+    for r in stems:
+        parent = recs[r["parent"]]
+        assert parent["name"] in ("refiner.net", "scorer.net")
+        assert (r["n"], r["size"]) == (2 * parent["n"], 6)
 
 
 def test_trace_writes_spans_json(runs):
